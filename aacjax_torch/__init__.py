@@ -2,8 +2,10 @@
 
 The device side runs hand-written CUDA kernels for Hopper (sm_90a): the
 fused decode tail, the synthesis filterbank and the TNS recurrence
-(`aacjax_torch.kernels`).  The host side (ADTS, ASC, the native C++ parser)
-is shared with `aacjax` and loaded without JAX (`aacjax_torch._shared`).
+(`aacjax_torch.kernels`).  The host side (ADTS, ASC, the bitstream syntax,
+the ctypes binding to the native C++ parser, the constant tables) is the
+port's own copy of `aacjax`'s host modules (`aacjax_torch.host`,
+`aacjax_torch.tables`): the port imports nothing of `aacjax` and no JAX.
 
 Every entry point takes an explicit `device`; the default is "cuda" and it
 raises where CUDA is absent.  Matrix products run in full fp32: TF32 is
@@ -11,9 +13,6 @@ switched off here, matching the reference's Precision.HIGHEST.
 """
 import torch
 
-from aacjax_torch._shared import ensure_shared
-
-ensure_shared()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

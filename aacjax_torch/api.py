@@ -10,17 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aacjax.host import adts, native
-from aacjax.host.asc import UnsupportedError, parse_asc
-from aacjax.host.bitio import BitReader, BitstreamError
-from aacjax.host.syntax import decode_frame
+from aacjax_torch.host import adts, native
+from aacjax_torch.host.asc import UnsupportedError, parse_asc
+from aacjax_torch.host.bitio import BitReader, BitstreamError
+from aacjax_torch.host.syntax import decode_frame
 from aacjax_torch.runtime.batch import LC_PROFILE, BatchDecoder
 
 
 def _probe_sbr_ps(data: bytes, frames, config) -> tuple[bool, bool]:
     """Implicitly signalled HE-AAC: does the first frame carry an SBR FIL
     extension, and a ps_data payload?  (Throwaway python parse.)"""
-    from aacjax.host.sbr import SBRContext
+    from aacjax_torch.host.sbr import SBRContext
     _, s, e = frames[0]
     try:
         f = decode_frame(BitReader(data[s:e]), config, [0] * config.channels,

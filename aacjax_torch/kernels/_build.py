@@ -22,7 +22,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "aacjax_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,11 +32,11 @@ _SIGNATURES = {
     "aacjax_tail": [_P, _P, _I,                 # spec, scale, spec_i16
                     _P, _P, _P, _P, _P, _P,     # f/s/shape/prev idx, short, valid
                     _P, _P,                     # last_valid, overlap_in
-                    _P, _P, _P, _P, _P, _P,     # m_long m_short f s rise fall
+                    _P, _P, _P, _P, _P,         # twiddles, f s rise fall
                     _P, _P, _I, _I, _I, _I,     # pcm, ov_out, out_i16, has_short, C, T
                     _P],                        # stream
     "aacjax_synth": [_P, _P, _P, _P, _P, _P,    # spec, f/s/shape/prev idx, short
-                     _P, _P, _P, _P, _P, _P,    # constants
+                     _P, _P, _P, _P, _P,        # twiddles, f s rise fall
                      _P, _P, _I, _P],           # first, second, B, stream
     "aacjax_tns": [_P, _P, _P, _P, _P, _P, _P,  # x, fwd lpc/start/end, rev ...
                    _P, _I, _P],                 # out, rows, stream
@@ -65,7 +65,9 @@ def _lib_path() -> pathlib.Path:
 
 def build() -> tuple[pathlib.Path, float]:
     """Compile the kernels if the cached library is missing.  Returns the
-    library path and the seconds spent compiling (0.0 when cached)."""
+    library path and the seconds spent compiling (0.0 when cached).
+    nvcc's output (ptxas registers, shared memory and spills of every
+    kernel) is kept beside the library, in `ptxas_log()`."""
     path = _lib_path()
     if path.exists():
         return path, 0.0
@@ -81,8 +83,15 @@ def build() -> tuple[pathlib.Path, float]:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, path)
     return path, time.perf_counter() - t0
+
+
+def ptxas_log() -> str:
+    """What ptxas reported for the built library ("" before a build)."""
+    log = _lib_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,8 +113,9 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def check(t, name: str, dtype, shape: tuple, device) -> int:
-    """Validate a kernel argument; returns its data pointer."""
+def check(t, name: str, dtype, shape: tuple, device, align: int = 4) -> int:
+    """Validate a kernel argument (device, type, shape, contiguity and an
+    address aligned to `align` bytes); returns its data pointer."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -114,6 +124,8 @@ def check(t, name: str, dtype, shape: tuple, device) -> int:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: address not aligned to {align} bytes")
     return t.data_ptr()
 
 

@@ -21,7 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
-from aacjax.kernels import windows as W
+from aacjax_torch.kernels import imdct
+from aacjax_torch.kernels import windows as W
 
 FRAME = 1024
 SHORT = FRAME // 8
@@ -58,11 +59,15 @@ _NOT_PORTED = {
 
 @functools.lru_cache(maxsize=None)
 def consts(device: torch.device) -> dict[str, torch.Tensor]:
-    """IMDCT matrices and window tables on `device`, from the same numpy
-    functions (aacjax/kernels/windows.py) the reference embeds."""
+    """Constant tables on `device`: the IMDCT matrices of the plain
+    versions and the window tables, from the same numpy functions
+    (kernels/windows.py, a copy of the reference's) the reference embeds;
+    and the FFT twiddle table of the kernels (kernels/imdct.py, computed
+    in float64, stored as float32 [imdct.TW_SIZE, 2])."""
     tabs = dict(m_long=W.imdct_long_matrix(), m_short=W.imdct_short_matrix(),
                 f_table=W.first_half_windows(), s_table=W.second_half_windows(),
-                rise=W.short_rise(), fall=W.short_fall())
+                rise=W.short_rise(), fall=W.short_fall(),
+                twiddles=imdct.twiddles())
     return {k: torch.from_numpy(v.copy()).to(device) for k, v in tabs.items()}
 
 

@@ -1,9 +1,10 @@
 """The synthesis filterbank: CUDA counterpart of `aacjax/kernels/pallas_synth.py`.
 
 `synthesis` runs `csrc/filterbank.cu` (entry `aacjax_synth`, the same
-source as the fused tail, with an epilogue that stops before the
-cross-frame overlap-add) on CUDA tensors and `synthesis_ref`, its plain
-PyTorch version, on CPU tensors.
+device code as the fused tail, the FFT IMDCT of kernels/imdct.py, with an
+epilogue that stops before the cross-frame overlap-add) on CUDA tensors
+and `synthesis_ref`, its plain PyTorch version (the reference's dense
+product), on CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,13 +38,14 @@ def synthesis(spec, f_idx, s_idx, shape_idx, prev_shape_idx, is_short):
     global launches
     B = spec.shape[0]
     dev = spec.device
-    ptrs = [_build.check(spec, "spec", torch.float32, (B, FRAME), dev)]
+    ptrs = [_build.check(spec, "spec", torch.float32, (B, FRAME), dev,
+                         align=16)]
     for name, a in zip(("f_idx", "s_idx", "shape_idx", "prev_shape_idx",
                         "is_short"), args[1:]):
         ptrs.append(_build.check(a, name, torch.int32, (B,), dev))
     c = P.consts(dev)
-    ptrs += [c[k].data_ptr() for k in ("m_long", "m_short", "f_table",
-                                       "s_table", "rise", "fall")]
+    ptrs += [c[k].data_ptr() for k in ("twiddles", "f_table", "s_table",
+                                       "rise", "fall")]
     first = torch.empty((B, FRAME), dtype=torch.float32, device=dev)
     second = torch.empty((B, FRAME), dtype=torch.float32, device=dev)
     _build.launch("aacjax_synth", *ptrs, first.data_ptr(), second.data_ptr(),

@@ -5,6 +5,8 @@ tensors and `decode_tail_ref`, its plain PyTorch version, on CPU tensors.
 One launch takes a [C, T, 1024] chunk through decompression (int16 input),
 the long and short IMDCT, windowing, the intra- and cross-frame
 overlap-add, concealment, the int16 or float pack and the overlap carry.
+The kernel computes the IMDCT by FFT (kernels/imdct.py); the plain version
+keeps the reference's dense product.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from aacjax_torch.kernels import _build
 from aacjax_torch.kernels import pipeline as P
 
 FRAME = P.FRAME
-MAX_T = 64      # a block holds all T frames of a channel: T <= 64 rows
+MAX_T = 64      # the reference's gate (its kernel's VMEM footprint)
 TILE_C = 8      # the reference's channel tile; kept as the gate
 
 launches = 0    # kernel launches since the last reset
@@ -65,17 +67,18 @@ def decode_tail(spec, spec_scale, f_idx, s_idx, shape_idx, prev_shape_idx,
     i16 = spec_scale is not None
     ck = _build.check
     ptrs = [ck(spec, "spec", torch.int16 if i16 else torch.float32,
-               (C, T, F), dev),
+               (C, T, F), dev, align=8),
             ck(spec_scale, "spec_scale", torch.float32, (C, T, F // 16), dev)
             if i16 else None, int(i16)]
     for name, a in zip(("f_idx", "s_idx", "shape_idx", "prev_shape_idx",
                         "is_short", "valid"), args[2:8]):
         ptrs.append(ck(a, name, torch.int32, (C, T), dev))
     ptrs += [ck(last_valid, "last_valid", torch.int32, (C,), dev),
-             ck(overlap_in, "overlap_in", torch.float32, (C, F), dev)]
+             ck(overlap_in, "overlap_in", torch.float32, (C, F), dev,
+                align=16)]
     c = P.consts(dev)
-    ptrs += [c[k].data_ptr() for k in ("m_long", "m_short", "f_table",
-                                       "s_table", "rise", "fall")]
+    ptrs += [c[k].data_ptr() for k in ("twiddles", "f_table", "s_table",
+                                       "rise", "fall")]
     pcm = torch.empty((C, T, F), dtype=torch.int16 if out_int16
                       else torch.float32, device=dev)
     new_overlap = torch.empty((C, F), dtype=torch.float32, device=dev)

@@ -20,10 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from aacjax.host import native
-from aacjax.host.asc import StreamConfig
-from aacjax.host.bitio import BitReader
-from aacjax.runtime.stats import DecodeStats
+from aacjax_torch.host import native
+from aacjax_torch.host.asc import StreamConfig
+from aacjax_torch.host.bitio import BitReader
+from aacjax_torch.runtime.stats import DecodeStats
 from aacjax_torch.kernels import pipeline as P
 
 FRAME = 1024
@@ -197,7 +197,7 @@ class BatchDecoder:
     def _apply_native_drc(self, payloads_per_stream, out) -> None:
         """Fold each frame's dynamic_range_info gains (FIL payload found by
         the native walker at out.fil_drc) into the dequantized spectra."""
-        from aacjax.host.syntax import read_drc_info
+        from aacjax_torch.host.syntax import read_drc_info
         fil = out.fil_drc
         g = 0
         for i, payloads in enumerate(payloads_per_stream):

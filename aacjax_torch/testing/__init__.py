@@ -1,16 +1,17 @@
 """Test inputs for the port's checks (the CPU tests, the card tests and
 chip_smoke.py): numpy-seeded kernel inputs, and streams built with the
-shared encoder of aacjax.testing.  Everything here is numpy, so the JAX
-reference and the port can be fed the same arrays."""
+port's copy of the test encoder (`aacjax_torch.testing.encoder`).
+Everything here is numpy, so the JAX reference and the port can be fed the
+same arrays."""
 from __future__ import annotations
 
 import numpy as np
 
-from aacjax.host import adts
-from aacjax.host.asc import StreamConfig, make_asc, parse_asc
-from aacjax.host.bitio import BitWriter
-from aacjax.testing import encoder as enc
-from aacjax.testing.specgen import random_cpe_spec
+from aacjax_torch.host import adts
+from aacjax_torch.host.asc import StreamConfig, make_asc, parse_asc
+from aacjax_torch.host.bitio import BitWriter
+from aacjax_torch.testing import encoder as enc
+from aacjax_torch.testing.specgen import random_cpe_spec
 
 SR = 44100
 FRAME = 1024
@@ -167,6 +168,28 @@ def encode_adts(pcm: np.ndarray, target_sf: int) -> bytes:
     """AAC-LC 44.1 kHz ADTS of pcm [n, channels] (mono or stereo)."""
     config = parse_asc(make_asc(2, 4, pcm.shape[1]))
     return enc.encode_pcm(pcm, config, target_sf=target_sf)
+
+
+def make_corpus(n_unique: int, seconds: float, sr: int = 44100):
+    """Encode n_unique distinct stereo streams with realistic content
+    (tones + noise with per-stream character): the corpus of the
+    reference's headline benchmark (`bench.py` `make_corpus`), with the
+    same seeds and arithmetic.  Returns (config, list of ADTS streams)."""
+    config = parse_asc(make_asc(2, 4, 2))
+    n = int(seconds * sr) // 1024 * 1024
+    t = np.arange(n) / sr
+    streams = []
+    for i in range(n_unique):
+        rng = np.random.default_rng(1000 + i)
+        f0 = 200.0 * (1.3 ** i)
+        x = (7000 * np.sin(2 * np.pi * f0 * t)
+             + 2500 * np.sin(2 * np.pi * 2.7 * f0 * t + 0.3)
+             + 900 * rng.standard_normal(n))
+        pcm = np.stack([x, np.roll(x, 64) * 0.85], axis=1)
+        # target_sf=146 lands around 500-700 bytes/frame (~200 kbps stereo),
+        # the realistic high-quality streaming operating point
+        streams.append(enc.encode_pcm(pcm, config, target_sf=146))
+    return config, streams
 
 
 def adts_payloads(data: bytes) -> list[bytes]:

@@ -4,16 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each printed as it runs; any failure exits non-zero:
-  1. environment (GPU, power limit, torch, nvcc, triton, native parser) and
-     the build of the CUDA kernels from aacjax_torch/kernels/csrc;
-  2. each kernel against its plain PyTorch version on the card, with its
-     time beside the plain version's (CUDA events, median of 20 runs);
+  1. environment (GPU, power limit, torch, nvcc, triton, native parser),
+     the build of the CUDA kernels from aacjax_torch/kernels/csrc and what
+     ptxas reported for each kernel (registers, spills);
+  2. each kernel against its plain PyTorch version on the card at the main
+     path's shapes and a few others, with its time beside the plain
+     version's, the least time the card could take for the same work
+     (its bound) and a PyTorch library call as a yardstick where one
+     exists (CUDA events, median of 20 runs of 10 back-to-back calls for
+     the kernels and the library calls, of 1 call for the plain versions,
+     of which the TNS one gets 3 runs), and each kernel's own device time
+     from a torch.profiler trace of 10 launches;
   3. the serving slice at full width: 512 concurrent AAC-LC stereo streams
-     (44.1 kHz, ~200 kbps; bench.py's corpus), chunk_frames=16, through
-     BatchDecoder.decode_pipelined, five runs -- launch counts, every chunk
-     of every stream of every run against the plain route, the host's cores
-     and parse threads, aggregate realtime x (median of the runs), stage
-     split;
+     (44.1 kHz, ~200 kbps; the reference's headline corpus),
+     chunk_frames=16, through BatchDecoder.decode_pipelined, five runs --
+     launch counts, every chunk of every stream of every run against the
+     plain route (and the share of int16 samples that differ), the host's
+     cores and parse threads, aggregate realtime x (median of the runs),
+     stage split;
   4. decode_adts on a stream with short windows and TNS (synthesis and TNS
      kernels) and on a mono stream in chunks of 5 frames (synthesis at
      C*T = 15), each against the plain route on the CPU, and the round-trip
@@ -26,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +46,11 @@ N_STREAMS = 512
 CHUNK = 16
 WINDOWS = 5        # pipelined runs over the whole corpus; median reported
 TIMING_RUNS = 20
+REPS = 10          # back-to-back calls per timed run of a kernel
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes/s
+# and FP32 FLOP/s outside the tensor cores (an FMA counts 2)
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -53,9 +67,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(torch, fn, runs: int = TIMING_RUNS) -> float:
-    """Median over `runs` of one call's device time (CUDA events), after
-    a warm-up call."""
+def time_ms(torch, fn, runs: int = TIMING_RUNS, reps: int = 1) -> float:
+    """Median over `runs` of the device time (CUDA events) of `reps`
+    back-to-back calls, per call, after a warm-up call.  With reps > 1 the
+    host launches the next call while the card runs the last, so a
+    kernel's time excludes the host's per-call work unless that is the
+    longer of the two."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -63,24 +80,128 @@ def time_ms(torch, fn, runs: int = TIMING_RUNS) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def device_ms(torch, fn, kernel: str, reps: int = REPS) -> float | None:
+    """The kernel's own device time per launch (ms), from a torch.profiler
+    trace of `reps` calls after a warm-up call: the average over the
+    launches of every device kernel whose name holds `kernel`.  None when
+    the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total
+                for e in evs)
+    count = sum(e.count for e in evs)
+    return total / count / 1e3 if count and total else None
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the HBM rate and the FP32 operations over the FP32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# FP32 operations of one frame through the FFT IMDCT as the kernel
+# computes it (kernels/imdct.py): complex multiply 6, the 8-point DFT's
+# butterflies 52.  Long: pre- and post-twiddle (512 each), three radix-8
+# passes of 64 DFTs with 7 twiddles after each of the first two.  Short:
+# 8 x 64 pre- and post-twiddles, two passes, one set of twiddles.
+FFT_FLOPS = {False: 6 * 512 * 2 + 3 * 64 * 52 + 2 * 64 * 7 * 6,
+             True: 6 * 512 * 2 + 2 * 64 * 52 + 64 * 7 * 6}
+DENSE_FLOPS = {False: 2 * 1024 * 2048, True: 8 * 2 * 128 * 256}
+
+
+def filterbank_flops(is_short, per_sample: int) -> float:
+    """Operations of the filterbank over frames with flags `is_short`
+    (numpy), with `per_sample` more per output sample (decompression,
+    windows, overlap-adds, concealment, scale)."""
+    n_short = int((np.asarray(is_short) != 0).sum())
+    n_long = np.asarray(is_short).size - n_short
+    return (n_long * FFT_FLOPS[False] + n_short * FFT_FLOPS[True]
+            + np.asarray(is_short).size * 1024 * per_sample)
+
+
+def dense_bound_ms(rows: int) -> float:
+    """The bound of the same rows under the dense-product algorithm (the
+    long product spec @ M_long for every row, FP32 FFMA)."""
+    return rows * DENSE_FLOPS[False] / FP32_FLOP_S * 1e3
+
+
+def tns_flops(args) -> float:
+    """Operations the TNS inputs need: per bin inside a filter's region,
+    `order` compensated multiply-adds (TwoProd + TwoSum, ~20 operations
+    each) and the closing TwoSums (~13)."""
+    total = 0.0
+    for d in (0, 3):                   # forward, reverse
+        lpc, start, end = (np.asarray(a.cpu()) for a in args[1 + d:4 + d])
+        nz = lpc != 0
+        order = np.where(nz.any(-1), 20 - np.argmax(nz[..., ::-1], -1), 0)
+        span = np.maximum(end - start, 0)
+        total += float((span * (20 * order + 13) * (order > 0)).sum())
+    return total
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel from nvcc's -Xptxas -v output: its registers,
+    shared memory and spills (filterbank modes: 0 int16 PCM, 1 f32 PCM,
+    2 the synthesis halves)."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
+            kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
+                    else "tns_kernel" if "tns_kernel" in name else name)
+            out.append(f"ptxas {kind}: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+            name, spill = None, ""
+    return out
 
 
 # -- phase 2: each kernel against its plain version ---------------------------
 def phase_kernels(torch, dev) -> dict:
     from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import pipeline as P
     from aacjax_torch.kernels import synth, tail, tns
     results = {}
+    tabs = [P.consts(dev)[k] for k in ("twiddles", "f_table", "s_table",
+                                       "rise", "fall")]
 
     def on_dev(arrays):
         return [None if a is None else torch.from_numpy(a).to(dev)
                 for a in arrays]
 
-    def tail_case(name, C, T, i16, out16, ragged, short, amp, timed=False):
+    def fft_ms(rows):
+        z = torch.randn(rows, 512, dtype=torch.complex64, device=dev)
+        return time_ms(torch, lambda: torch.fft.fft(z), reps=REPS)
+
+    def tail_case(name, C, T, i16, out16, ragged, short, amp, key=None):
         b = TI.random_tail_chunk(len(name), C, T, i16=i16, has_short=short,
                                  ragged=ragged, amp=amp)
         args = on_dev(b[k] for k in TI.TAIL_ARGS)
@@ -89,38 +210,81 @@ def phase_kernels(torch, dev) -> dict:
         ref, ref_ov = tail.decode_tail_ref(*args, **kw)
         torch.cuda.synchronize()
         err = TI.assert_pcm_close(pcm.cpu(), ref.cpu(), out16, name)
+        share = float((pcm != ref).float().mean())
         ov_err = float((ov - ref_ov).abs().max())
         check(ov_err <= 3e-3, f"{name}: overlap err {ov_err} > 3e-3")
-        line = (f"kernel tail {name}: max err {err} (overlap {ov_err}, "
-                f"max|ref| {float(ref.abs().max())})")
-        if timed:
-            ms = time_ms(torch, lambda: tail.decode_tail(*args, **kw))
+        line = (f"kernel tail {name}: max err {err} ({share:.5f} of samples "
+                f"differ; overlap {ov_err}, max|ref| "
+                f"{float(ref.abs().float().max())})")
+        if key:
+            ms = time_ms(torch, lambda: tail.decode_tail(*args, **kw),
+                         reps=REPS)
+            dms = device_ms(torch, lambda: tail.decode_tail(*args, **kw),
+                            "filterbank_kernel")
             plain = time_ms(torch, lambda: tail.decode_tail_ref(*args, **kw))
-            results["tail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-            line += f"; {ms:.4f} ms, plain {plain:.4f} ms"
+            per_sample = (1 if i16 else 0) + 5      # decompress, 2 windows,
+            flops = filterbank_flops(b["is_short"], per_sample)  # add, keep, pack
+            b_ms, b_by = bound(nbytes(*args, *tabs, pcm, ov), flops)
+            lib = fft_ms(C * T)
+            results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib)
+            line += (f"; {ms:.4f} ms per call (device {fmt(dms)}), plain "
+                     f"{plain:.4f} ms, bound {b_ms:.4f} "
+                     f"ms ({b_by}; dense-product bound "
+                     f"{dense_bound_ms(C * T):.4f} ms), torch.fft.fft "
+                     f"[{C * T}, 512] {lib:.4f} ms")
         say(line)
 
     # spectra scaled so that the PCM spans ~+-5000, inside the int16 range
     tail_case("serving C=1024 T=16 i16->int16 all-long", 1024, 16, True,
-              True, False, False, 3000.0, timed=True)
+              True, False, False, 3000.0, key="tail")
+    tail_case("C=1024 T=16 f32->int16 quarter short", 1024, 16, False,
+              True, False, True, 3000.0, key="tail_short")
+    tail_case("C=8 T=64 f32->f32 ragged short", 8, 64, False, False, True,
+              True, 3000.0, key="tail_small")
     for i16 in (True, False):
         for out16 in (True, False):
             tail_case(f"C=8 T=4 ragged short {'i16' if i16 else 'f32'}->"
                       f"{'int16' if out16 else 'f32'}", 8, 4, i16, out16,
                       True, True, 3000.0)
 
-    args = on_dev(TI.random_synth_batch(4, 256))
-    first, second = synth.synthesis(*args)
-    rf, rs = synth.synthesis_ref(*args)
-    torch.cuda.synchronize()
-    scale = max(1.0, float(rf.abs().max()), float(rs.abs().max()))
-    err = max(float((first - rf).abs().max()), float((second - rs).abs().max()))
-    check(err <= 5e-5 * scale, f"synthesis: err {err} > {5e-5 * scale}")
-    ms = time_ms(torch, lambda: synth.synthesis(*args))
-    plain = time_ms(torch, lambda: synth.synthesis_ref(*args))
-    results["synthesis"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    say(f"kernel synthesis B=256 mixed sequences: max err {err} "
-        f"(scale {scale:.1f}); {ms:.4f} ms, plain {plain:.4f} ms")
+    for B, key in ((256, "synthesis"), (16384, "synthesis_16384")):
+        np_args = TI.random_synth_batch(4, B)
+        args = on_dev(np_args)
+        first, second = synth.synthesis(*args)
+        rf, rs = synth.synthesis_ref(*args)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(rf.abs().max()), float(rs.abs().max()))
+        err = max(float((first - rf).abs().max()),
+                  float((second - rs).abs().max()))
+        check(err <= 5e-5 * scale, f"synthesis B={B}: err {err} > "
+              f"{5e-5 * scale}")
+        ms = time_ms(torch, lambda: synth.synthesis(*args), reps=REPS)
+        dms = device_ms(torch, lambda: synth.synthesis(*args),
+                        "filterbank_kernel")
+        plain = time_ms(torch, lambda: synth.synthesis_ref(*args))
+        b_ms, b_by = bound(nbytes(*args, *tabs, first, second),
+                           filterbank_flops(np_args[5], 2))
+        lib = fft_ms(B)
+        results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib)
+        say(f"kernel synthesis B={B} mixed sequences: max err {err} (scale "
+            f"{scale:.1f}); {ms:.4f} ms per call (device {fmt(dms)}), "
+            f"plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; dense-product bound "
+            f"{dense_bound_ms(B):.4f} ms), torch.fft.fft [{B}, 512] "
+            f"{lib:.4f} ms")
+
+    a = torch.randn(16384, 1024, device=dev)
+    m = P.consts(dev)["m_long"]
+    mm = time_ms(torch, lambda: torch.matmul(a, m), reps=REPS)
+    say(f"yardstick: torch.matmul [16384, 1024] x [1024, 2048] fp32 (the "
+        f"dense IMDCT product alone, TF32 "
+        f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}): "
+        f"{mm:.4f} ms")
+    results["_matmul_ms"] = mm
 
     for C, T, key in ((256, 16, None), (4, 64, "tns")):
         args = on_dev(TI.random_tns_chunk(5 + C, C, T))
@@ -131,12 +295,20 @@ def phase_kernels(torch, dev) -> dict:
         err = float((out - ref).abs().max())
         check(bool(torch.isfinite(out).all()), "tns: non-finite output")
         check(err <= 1e-6 * xmax, f"tns B={C * T}: err {err} > {1e-6 * xmax}")
-        ms = time_ms(torch, lambda: tns.tns(*args))
-        plain = time_ms(torch, lambda: tns.tns_ref(*args))
+        ms = time_ms(torch, lambda: tns.tns(*args), reps=REPS)
+        dms = device_ms(torch, lambda: tns.tns(*args), "tns_kernel")
+        # the plain version is a Python loop of ~0.5 M small launches
+        # (seconds per call): three runs
+        plain = time_ms(torch, lambda: tns.tns_ref(*args), runs=3)
+        b_ms, b_by = bound(nbytes(*args, out), tns_flops(args))
         if key:
-            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None)
         say(f"kernel tns B={C * T} orders 2/12/20: max err {err} "
-            f"(max|x| {xmax:.1f}); {ms:.4f} ms, plain {plain:.4f} ms")
+            f"(max|x| {xmax:.1f}); {ms:.4f} ms per call (device {fmt(dms)}), "
+            f"plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); no PyTorch call computes TNS")
     return results
 
 
@@ -154,13 +326,13 @@ def parse_threads(n_streams: int) -> int:
 # -- phase 3: the serving slice ----------------------------------------------
 def phase_slice(torch) -> int:
     import aacjax_torch
-    import bench      # the reference's headline corpus (numpy + shared host)
     from aacjax_torch.kernels import pipeline as P
     from aacjax_torch.kernels import synth, tail, tns
-    from aacjax_torch.testing import adts_payloads, assert_pcm_close
+    from aacjax_torch.testing import (adts_payloads, assert_pcm_close,
+                                      make_corpus)
 
     t0 = time.perf_counter()
-    config, streams = bench.make_corpus(4, 4.0)
+    config, streams = make_corpus(4, 4.0)
     corpus = [adts_payloads(d) for d in streams]
     per_stream = [corpus[i % 4] for i in range(N_STREAMS)]
     n_chunks = min(len(p) for p in per_stream) // CHUNK
@@ -202,7 +374,7 @@ def phase_slice(torch) -> int:
     # the same parsed batches (a separate decoder parses the same chunks)
     ver = decoder()
     overlap = torch.zeros((ver.C, 1024), device="cuda")
-    worst = 0.0
+    worst, n_diff, n_all = 0.0, 0, 0
     for k, chunk in enumerate(chunks):
         dev = ver._upload_batch(ver._parse_native(chunk, compact=True))
         ver._h2d_done[0].synchronize()
@@ -215,8 +387,12 @@ def phase_slice(torch) -> int:
         for w, outs in enumerate(runs):
             worst = max(worst, assert_pcm_close(outs[k], ref, True,
                                                 f"run {w} chunk {k}"))
+            n_diff += int((outs[k] != ref.numpy()).sum())
+            n_all += ref.numel()
     say(f"slice: all {n_chunks} chunks of all {N_STREAMS} streams in all "
-        f"{WINDOWS} runs match the plain route (max int16 delta {worst:.0f})")
+        f"{WINDOWS} runs match the plain route within 1 LSB on < 2% of "
+        f"samples (max int16 delta {worst:.0f}, {n_diff / n_all:.6f} of "
+        f"samples differ)")
 
     # stage split for one chunk: parse on the host clock, H2D / compute /
     # D2H with CUDA events on their streams (median of 5)
@@ -325,13 +501,14 @@ def main() -> None:
         say(f"triton {triton.__version__} imports")
     except ImportError as e:
         say(f"triton does not import: {e}")
-    import aacjax_torch  # noqa: F401  (loads the shared host layer)
-    from aacjax.host import native
+    from aacjax_torch.host import native
     say(f"native parser available: {native.available()}")
     check(native.available(), "the native parser is not available")
     path, secs = _build.build()
     _build.lib()
     say(f"kernels built in {secs:.1f} s: {path.relative_to(REPO)}")
+    for line in ptxas_lines(_build.ptxas_log()):
+        say(line)
 
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)
@@ -345,10 +522,11 @@ def main() -> None:
             "synthesis": (src + "filterbank.cu",
                           "aacjax/kernels/pallas_synth.py:112"),
             "tns": (src + "tns.cu", "aacjax/kernels/pipeline.py:334")}
+    keys = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=k, route="cuda", source=meta[k][0],
-                    replaces=meta[k][1], launches=r["launches"],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for k, r in results.items()]
+                    replaces=meta[k][1], **{q: results[k][q] for q in keys})
+               for k in meta]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

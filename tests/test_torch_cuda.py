@@ -10,7 +10,8 @@ same numpy-seeded inputs, at the reference's tolerances for its Pallas
 kernels (tests/test_pallas_tail.py, tests/test_pallas_synth.py): int16 PCM
 within 1 LSB with fewer than 2% of samples differing, f32 PCM within
 5e-5 * max(1, max|ref|), the carried overlap of the random chunks within
-3e-3, synthesis halves within 5e-5 * scale.  TNS is held to 1e-6 * max|x|:
+3e-3, synthesis halves within 5e-5 * scale.  The kernels compute the IMDCT
+by FFT, the plain versions by the reference's dense product.  TNS is held to 1e-6 * max|x|:
 the float-float form exists for that accuracy.  This file imports no JAX.
 """
 import pytest
@@ -59,7 +60,27 @@ def test_tail_kernel_matches_plain(dev, i16, out_int16, has_short, C, T,
         assert torch.equal(ov[0], args[-1][0])
 
 
-@pytest.mark.parametrize("B", [8, 100, 256])
+@pytest.mark.parametrize("C,T,i16,out_int16,has_short", [
+    (1024, 16, True, True, False),   # the serving chunk of LC-512
+    (1024, 16, False, True, True),   # a quarter of the frames EIGHT_SHORT
+    (8, 64, False, False, True),     # few channels, many frames
+])
+def test_tail_kernel_at_main_path_shapes(dev, C, T, i16, out_int16,
+                                         has_short):
+    b = TI.random_tail_chunk(C + T, C, T, i16=i16, has_short=has_short,
+                             ragged=C < 64, amp=3000.0)
+    args = _on(dev, (b[k] for k in TI.TAIL_ARGS))
+    kw = dict(out_int16=out_int16, has_short=has_short)
+    before = tail.launches
+    pcm, ov = tail.decode_tail(*args, **kw)
+    assert tail.launches == before + 1
+    ref, ref_ov = tail.decode_tail_ref(*args, **kw)
+    torch.cuda.synchronize()
+    TI.assert_pcm_close(pcm.cpu(), ref.cpu(), out_int16)
+    assert float((ov - ref_ov).abs().max()) <= 3e-3
+
+
+@pytest.mark.parametrize("B", [8, 100, 256, 16384])
 def test_synthesis_kernel_matches_plain(dev, B):
     args = _on(dev, TI.random_synth_batch(B, B))
     before = synth.launches
@@ -145,7 +166,7 @@ def test_decode_adts_on_card_runs_synthesis_and_tns(dev):
 
 
 def test_decode_pipelined_on_card_matches_cpu(dev):
-    from aacjax.testing.streams import make_lc_payload_chunks
+    from aacjax_torch.testing.streams import make_lc_payload_chunks
     configs, chunks = make_lc_payload_chunks(n_streams=4, chunk_frames=8,
                                              n_chunks=3)
     before = tail.launches

@@ -1,6 +1,9 @@
-"""The port runs where JAX is absent (as on the machine with the GPU), its
-kernel modules import without nvcc or triton, and a CUDA request without
-CUDA raises instead of running on the CPU."""
+"""The port stands alone: it imports nothing of JAX, of the `aacjax`
+package or of `bench.py` (the machine with the GPU has no JAX), its copies
+of aacjax's host modules equal the originals but for their import lines,
+its kernel modules import without nvcc or triton, and a CUDA request
+without CUDA raises instead of running on the CPU."""
+import ast
 import os
 import pathlib
 import re
@@ -12,16 +15,23 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
+# port file -> the aacjax file it copies (the same relative path)
+COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
+          "host/huffman.py", "host/huffman_books.npz", "host/syntax.py",
+          "host/sbr.py", "host/sbr_tables.npz", "host/ps.py",
+          "host/ps_tables.npz", "host/native.py", "host/aac_960_tables.npz",
+          "kernels/windows.py", "runtime/stats.py", "testing/encoder.py",
+          "testing/specgen.py", "testing/streams.py",
+          "testing/sbr_encoder.py")
+
 _NO_JAX_DECODE = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises
 import numpy as np
 import aacjax_torch
-import aacjax
-assert not hasattr(aacjax, "decode_adts"), "aacjax/__init__.py ran"
-from aacjax.host import native
-from aacjax.host.asc import make_asc, parse_asc
-from aacjax.testing.encoder import encode_pcm
+from aacjax_torch.host import native
+from aacjax_torch.host.asc import make_asc, parse_asc
+from aacjax_torch.testing.encoder import encode_pcm
 assert native.available()
 cfg = parse_asc(make_asc(2, 4, 2))
 n = 1024 * 6
@@ -34,23 +44,85 @@ dec = out[1024:1024 + n] * 32768.0
 err = dec[2048:n - 2048] - pcm[2048:n - 2048]
 snr = 10 * np.log10(np.sum(pcm[2048:n - 2048] ** 2) / np.sum(err ** 2))
 assert rate == 44100 and snr > 60.0, snr
+loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
+assert loaded == [], loaded
 print("ok", round(snr, 1))
 """
 
 
 def test_decodes_with_jax_unimportable():
+    """Import, encode and decode on the CPU with JAX unimportable; no
+    module of the `aacjax` package is loaded at the end."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_DECODE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "aacjax", "bench")
+
+
 def test_no_file_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
+    """An AST scan of every module of the port, chip_smoke.py and the card
+    tests: no import of jax, aacjax or bench, at any depth of a file."""
     files = sorted((REPO / "aacjax_torch").rglob("*.py"))
-    assert files
-    offenders = [str(p) for p in files if pattern.search(p.read_text())]
-    assert offenders == []
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    assert len(files) > 20
+    offenders = {str(p.relative_to(REPO)): sorted(filter(_forbidden, names))
+                 for p in files
+                 if any(map(_forbidden, names := _imported_modules(p)))}
+    assert offenders == {}
+
+
+def test_scan_finds_nested_imports(tmp_path):
+    """The scan sees imports inside functions, and tells `aacjax_torch`
+    from `aacjax`."""
+    src = tmp_path / "m.py"
+    src.write_text("import aacjax_torch\nfrom aacjax_torch.host import adts\n"
+                   "def f():\n    from aacjax.host import native\n"
+                   "    import jax.numpy\n    import bench\n")
+    got = sorted(filter(_forbidden, _imported_modules(src)))
+    assert got == ["aacjax.host", "bench", "jax.numpy"]
+
+
+_IMPORT_LINE = re.compile(r"^(\s*)(from|import) aacjax(?=[. ])", re.MULTILINE)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_port_copy_matches_original(rel):
+    """Each copied host module is the original with `aacjax` renamed to
+    `aacjax_torch` on its import lines, and nothing else changed; data
+    files are byte-equal."""
+    orig, copy = REPO / "aacjax" / rel, REPO / "aacjax_torch" / rel
+    if rel.endswith(".py"):
+        want = _IMPORT_LINE.sub(r"\1\2 aacjax_torch", orig.read_text())
+        assert copy.read_text() == want
+    else:
+        assert copy.read_bytes() == orig.read_bytes()
+
+
+def test_make_corpus_matches_bench():
+    """The port's corpus is the reference's headline corpus, byte for
+    byte (same seeds, same arithmetic, same encoder)."""
+    import bench
+    from aacjax_torch.testing import make_corpus
+    cfg, streams = make_corpus(2, 0.2)
+    want_cfg, want = bench.make_corpus(2, 0.2)
+    assert (cfg.profile, cfg.sample_rate, cfg.channels) == (
+        want_cfg.profile, want_cfg.sample_rate, want_cfg.channels)
+    assert len(streams) == 2 and streams == want
 
 
 def test_kernel_modules_import_without_toolchain():
@@ -68,7 +140,7 @@ def test_kernel_modules_import_without_toolchain():
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
-    from aacjax.host.asc import make_asc, parse_asc
+    from aacjax_torch.host.asc import make_asc, parse_asc
     import aacjax_torch
     from aacjax_torch.testing import tns_short_adts
 

@@ -62,9 +62,11 @@ def test_decode_adts_mono_odd_chunks_matches_reference():
 @pytest.mark.parametrize("drc_scale", [0.0, 0.5, 1.0])
 def test_decode_adts_drc_matches_reference(drc_scale):
     """Banded dynamic_range_info gains with one excluded channel, folded
-    into the native-parsed spectra on the host."""
-    from aacjax.host.asc import make_asc, parse_asc
-    from aacjax.testing import encoder as enc
+    into the native-parsed spectra on the host.  The stream comes from the
+    port's copy of the encoder (its FIL path), byte-equal to aacjax's."""
+    from aacjax.testing import encoder as jax_enc
+    from aacjax_torch.host.asc import make_asc, parse_asc
+    from aacjax_torch.testing import encoder as enc
     config = parse_asc(make_asc(2, 4, 2))
     t = np.arange(1024 * 6)[:, None] / 44100.0
     x = np.repeat(6000 * np.sin(2 * np.pi * 500 * t)
@@ -73,6 +75,8 @@ def test_decode_adts_drc_matches_reference(drc_scale):
                           excluded=[False, True])
     payloads = enc.encode_pcm_frames(x, config, target_sf=110,
                                      fil_payloads=[drc])
+    assert payloads == jax_enc.encode_pcm_frames(x, config, target_sf=110,
+                                                 fil_payloads=[drc])
     stream = b"".join(enc.adts_frame(p, config) for p in payloads)
     want, _ = aacjax.decode_adts(stream, drc_scale=drc_scale)
     got, _ = aacjax_torch.decode_adts(stream, drc_scale=drc_scale,
