@@ -38,8 +38,10 @@ _SIGNATURES = {
     "aacjax_synth": [_P, _P, _P, _P, _P, _P,    # spec, f/s/shape/prev idx, short
                      _P, _P, _P, _P, _P,        # twiddles, f s rise fall
                      _P, _P, _I, _P],           # first, second, B, stream
-    "aacjax_tns": [_P, _P, _P, _P, _P, _P, _P,  # x, fwd lpc/start/end, rev ...
-                   _P, _I, _P],                 # out, rows, stream
+    "aacjax_tns": [_P, _P, _I,                  # x, scale, x_i16
+                   _P, _P, _I,                  # fwd lpc, rev lpc, row stride
+                   _P, _P, _P, _P, _I, _I,      # fwd/rev start, end; strides
+                   _P, _P, _P, _I, _P],         # out, items, counts, rows, stream
 }
 
 

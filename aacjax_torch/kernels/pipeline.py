@@ -10,7 +10,8 @@ cross-frame overlap-add, concealment and the PCM pack over a dense
 tail kernel where `tail.supported` holds (taking compact int16 spectra
 directly when there is no TNS), else the synthesis kernel plus
 `overlap_add`, for any C*T.  The TNS kernel runs ahead of either whenever
-the chunk carries TNS.  With `use_pallas=False` every stage runs as plain
+the chunk carries TNS; it reads the compact spectra and the parser's packed
+filter planes as they arrive and writes f32 spectra.  With `use_pallas=False` every stage runs as plain
 PyTorch (the reference's XLA route).  On CPU tensors each kernel wrapper
 runs its plain version.
 """
@@ -74,8 +75,8 @@ def consts(device: torch.device) -> dict[str, torch.Tensor]:
 def unpack_spec_batch(batch: dict) -> dict:
     """Slice the native parser's packed buffers: meta [C,T,6] int32 into
     contiguous int32 [C,T] planes (f_idx, s_idx, shape_idx,
-    prev_shape_idx, is_short, valid), last_valid [C] (the last valid frame
-    per channel, -1 for none), and the TNS planes per direction."""
+    prev_shape_idx, is_short, valid) and last_valid [C] (the last valid
+    frame per channel, -1 for none).  The TNS planes stay packed."""
     out = dict(batch)
     m = out.pop("meta")
     T = m.shape[1]
@@ -86,12 +87,6 @@ def unpack_spec_batch(batch: dict) -> dict:
     t = torch.arange(T, dtype=torch.int32, device=m.device)
     out["last_valid"] = torch.where(planes[5] != 0, t, -1).amax(dim=1).to(
         torch.int32)
-    if "tns_lpc" in out:
-        tl, tr = out.pop("tns_lpc"), out.pop("tns_range")
-        for d, name in enumerate(("fwd", "rev")):
-            out[f"tns_{name}_lpc"] = tl[:, :, d].contiguous()
-            out[f"tns_{name}_start"] = tr[:, :, d, :, 0].contiguous()
-            out[f"tns_{name}_end"] = tr[:, :, d, :, 1].contiguous()
     return out
 
 
@@ -181,13 +176,15 @@ def decode_spec_step(batch: dict, overlap_in: torch.Tensor,
         return tail.decode_tail(
             b["spec_i16"], b["spec_scale"], *idx, b["valid"], b["last_valid"],
             overlap_in, out_int16=flags.out_int16, has_short=flags.has_short)
-    spec = (decompress_i16(b["spec_i16"], b["spec_scale"]) if flags.spec_i16
-            else b["spec"])
     if flags.has_tns:
-        tns_fn = tns.tns if flags.use_pallas else tns.tns_ref
-        spec = tns_fn(spec, b["tns_fwd_lpc"], b["tns_fwd_start"],
-                      b["tns_fwd_end"], b["tns_rev_lpc"], b["tns_rev_start"],
-                      b["tns_rev_end"])
+        tns_fn = tns.tns_packed if flags.use_pallas else tns.tns_packed_ref
+        spec = (tns_fn(b["spec_i16"], b["spec_scale"], b["tns_lpc"],
+                       b["tns_range"]) if flags.spec_i16
+                else tns_fn(b["spec"], None, b["tns_lpc"], b["tns_range"]))
+    elif flags.spec_i16:
+        spec = decompress_i16(b["spec_i16"], b["spec_scale"])
+    else:
+        spec = b["spec"]
     if use_tail:
         return tail.decode_tail(
             spec, None, *idx, b["valid"], b["last_valid"], overlap_in,

@@ -74,15 +74,22 @@ def random_tail_chunk(seed: int, C: int, T: int, *, i16: bool,
              last_valid=(nval - 1).astype(np.int32), spec=spec,
              spec_scale=None)
     if i16:
-        blocks = spec.reshape(C, T, FRAME // 16, 16)
-        sc = np.maximum(np.abs(blocks).max(axis=-1) / 32767.0,
-                        1e-30).astype(np.float32)
-        b["spec"] = np.clip(np.round(blocks / sc[..., None]), -32768,
-                            32767).astype(np.int16).reshape(C, T, FRAME)
-        b["spec_scale"] = sc
+        b["spec"], b["spec_scale"] = block_scale_i16(spec)
     b["overlap"] = (rng.standard_normal((C, FRAME)) * amp / 3).astype(
         np.float32)
     return b
+
+
+def block_scale_i16(spec: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Block-scale f32 spectra [C, T, 1024] to the compact form: int16
+    [C, T, 1024] and one f32 scale per 16 bins [C, T, 64]."""
+    C, T, _ = spec.shape
+    blocks = spec.reshape(C, T, FRAME // 16, 16)
+    sc = np.maximum(np.abs(blocks).max(axis=-1) / 32767.0,
+                    1e-30).astype(np.float32)
+    q = np.clip(np.round(blocks / sc[..., None]), -32768,
+                32767).astype(np.int16).reshape(C, T, FRAME)
+    return q, sc
 
 
 def random_synth_batch(seed: int, B: int) -> tuple[np.ndarray, ...]:
@@ -137,6 +144,63 @@ def random_tns_chunk(seed: int, C: int, T: int,
         lpc[:, :, 1], rngs[:, :, 1, :, 0], rngs[:, :, 1, :, 1]))
 
 
+TNS_SERVING_TOP = 736     # bin of band 42, the 44.1 kHz long-window TNS limit
+
+
+def serving_tns_chunk(seed: int, C: int, T: int) -> tuple[np.ndarray, ...]:
+    """Arguments of tns.tns_packed with a filter mix like a serving chunk's:
+    (spec_i16 [C,T,1024], spec_scale [C,T,64], tns_lpc [C,T,2,8,20],
+    tns_range [C,T,2,8,2]), as the native parser packs them (the reverse
+    bank's ranges in flipped coordinates, start' = 1024 - end).
+
+    40% of the rows carry TNS.  Such a row has 1, 2 or 3 filters that tile
+    a run of bins inside [0, 736) without overlap (boundaries on multiples
+    of 4, as band offsets are); each filter has an order drawn from 1..12,
+    reflection coefficients uniform in [-0.9, 0.9] and one random direction,
+    and takes the next free slot of its direction's bank.  Every other slot
+    is empty (start = end = 0, lpc = 0)."""
+    rng = np.random.default_rng(seed)
+    lpc = np.zeros((C, T, 2, 8, 20), np.float32)
+    rngs = np.zeros((C, T, 2, 8, 2), np.int32)
+    grid = np.arange(0, TNS_SERVING_TOP + 1, 4)
+    for c, t in np.argwhere(rng.random((C, T)) < 0.4):
+        n_filt = int(rng.integers(1, 4))
+        cuts = np.sort(rng.choice(grid, n_filt + 1, replace=False))
+        used = [0, 0]
+        for i in range(n_filt):
+            order = int(rng.integers(1, 13))
+            d = int(rng.integers(0, 2))
+            lo, hi = int(cuts[i]), int(cuts[i + 1])
+            lpc[c, t, d, used[d], :order] = _lpc_from_reflection(
+                rng.uniform(-0.9, 0.9, order))
+            rngs[c, t, d, used[d]] = (FRAME - hi, FRAME - lo) if d else (lo, hi)
+            used[d] += 1
+    x = (rng.standard_normal((C, T, FRAME)) * 1000).astype(np.float32)
+    return (*block_scale_i16(x), lpc, rngs)
+
+
+def overlap_tns_chunk(seed: int = 8) -> tuple[np.ndarray, ...]:
+    """Arguments of tns.tns_packed for one channel of three frames whose
+    forward filters (order 3 over bins [10, 300), order 9 over [301, 1024))
+    meet reverse ranges: frame 0 an order-5 reverse filter over bins
+    [200, 400) (it wins there), frame 1 a reverse range [650, 700) with no
+    taps (it still claims its bins: they pass through), frame 2 a reverse
+    range with no taps over every bin (the whole frame passes through)."""
+    q, sc = block_scale_i16(np.random.default_rng(seed).standard_normal(
+        (1, 3, FRAME)).astype(np.float32) * 1000)
+    lpc = np.zeros((1, 3, 2, 8, 20), np.float32)
+    rngs = np.zeros((1, 3, 2, 8, 2), np.int32)
+    lpc[0, :, 0, 0, :3] = (0.6, -0.3, 0.1)
+    lpc[0, :, 0, 1, :9] = np.linspace(0.4, -0.4, 9)
+    lpc[0, 0, 1, 0, :5] = (0.5, 0.2, -0.2, 0.1, 0.05)
+    rngs[0, :, 0, 0] = (10, 300)
+    rngs[0, :, 0, 1] = (301, FRAME)
+    rngs[0, 0, 1, 0] = (FRAME - 400, FRAME - 200)
+    rngs[0, 1, 1, 0] = (FRAME - 700, FRAME - 650)
+    rngs[0, 2, 1, 0] = (0, FRAME)
+    return q, sc, lpc, rngs
+
+
 def lc_stereo_config() -> StreamConfig:
     """AAC-LC, 44.1 kHz, stereo."""
     return parse_asc(make_asc(2, 4, 2))
@@ -153,6 +217,18 @@ def tns_short_adts(n_frames: int = 12, seed: int = 0) -> bytes:
         enc.write_cpe(w, random_cpe_spec(rng, config, common=True), config)
         out.append(enc.adts_frame(enc.end_frame(w), config))
     return b"".join(out)
+
+
+def tns_serving_corpus(n_unique: int = 4, n_frames: int = 48):
+    """A serving corpus whose chunks carry TNS: n_unique AAC-LC stereo
+    44.1 kHz streams of n_frames random legal CPE frames each
+    (`tns_short_adts`, seeds 0..n_unique-1: M/S, all four window sequences,
+    about 40% of the channel-frames with TNS in either direction, order
+    <= 12 on long and <= 7 on short windows).  The audio is synthetic noise
+    with gains up to 2^20, so most of its PCM is far outside the int16
+    range.  Returns (config, list of ADTS streams)."""
+    return lc_stereo_config(), [tns_short_adts(n_frames, seed=i)
+                                for i in range(n_unique)]
 
 
 def tone_pcm(n: int, seed: int = 0) -> np.ndarray:

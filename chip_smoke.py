@@ -12,16 +12,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      version's, the least time the card could take for the same work
      (its bound) and a PyTorch library call as a yardstick where one
      exists (CUDA events, median of 20 runs of 10 back-to-back calls for
-     the kernels and the library calls, of 1 call for the plain versions,
-     of which the TNS one gets 3 runs), and each kernel's own device time
-     from a torch.profiler trace of 10 launches;
+     the kernels and the library calls, of 1 call for the plain versions;
+     the plain TNS, a Python loop over the bins that takes seconds, is
+     timed over the one call that makes the reference), and each kernel's
+     own device time per call from a torch.profiler trace of 10 calls.
+     TNS runs at 256, 4096 and 16384 rows of whole-spectrum order-2/12/20
+     filters in both directions, and at 16384 rows (the serving chunk) of
+     a serving-like mix read from compact int16 spectra and the parser's
+     packed filter planes;
   3. the serving slice at full width: 512 concurrent AAC-LC stereo streams
      (44.1 kHz, ~200 kbps; the reference's headline corpus),
      chunk_frames=16, through BatchDecoder.decode_pipelined, five runs --
      launch counts, every chunk of every stream of every run against the
      plain route (and the share of int16 samples that differ), the host's
      cores and parse threads, aggregate realtime x (median of the runs),
-     stage split;
+     stage split; then the same width over a corpus whose chunks carry TNS
+     (LC-512-tns: random legal frames with M/S, short windows and TNS, f32
+     PCM delivered because its synthetic audio is far outside the int16
+     range), two runs -- TNS and tail launches, every chunk against the
+     plain route, stage split;
   4. decode_adts on a stream with short windows and TNS (synthesis and TNS
      kernels) and on a mono stream in chunks of 5 frames (synthesis at
      C*T = 15), each against the plain route on the CPU, and the round-trip
@@ -45,6 +54,7 @@ REPO = pathlib.Path(__file__).resolve().parent
 N_STREAMS = 512
 CHUNK = 16
 WINDOWS = 5        # pipelined runs over the whole corpus; median reported
+TNS_WINDOWS = 2    # pipelined runs of the LC-512-tns pass
 TIMING_RUNS = 20
 REPS = 10          # back-to-back calls per timed run of a kernel
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes/s
@@ -89,10 +99,10 @@ def time_ms(torch, fn, runs: int = TIMING_RUNS, reps: int = 1) -> float:
 
 
 def device_ms(torch, fn, kernel: str, reps: int = REPS) -> float | None:
-    """The kernel's own device time per launch (ms), from a torch.profiler
-    trace of `reps` calls after a warm-up call: the average over the
-    launches of every device kernel whose name holds `kernel`.  None when
-    the trace shows no such kernel."""
+    """The device time per call (ms) of the kernels whose name holds
+    `kernel`, from a torch.profiler trace of `reps` calls after a warm-up
+    call: their summed time over `reps` (a wrapper may launch several).
+    None when the trace shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -103,8 +113,7 @@ def device_ms(torch, fn, kernel: str, reps: int = REPS) -> float | None:
     evs = [e for e in prof.key_averages() if kernel in e.key]
     total = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total
                 for e in evs)
-    count = sum(e.count for e in evs)
-    return total / count / 1e3 if count and total else None
+    return total / reps / 1e3 if total else None
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -176,8 +185,9 @@ def ptxas_lines(log: str) -> list[str]:
             spill = line.strip()
         elif "Used" in line and name:
             k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
+            t = re.search(r"(tns_(?:filter|prepare)_kernel)ILb(\d)E", name)
             kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
-                    else "tns_kernel" if "tns_kernel" in name else name)
+                    else f"{t[1]}<spec_i16={t[2]}>" if t else name)
             out.append(f"ptxas {kind}: {line.split(':', 1)[1].strip()}; "
                        f"{spill}")
             name, spill = None, ""
@@ -188,7 +198,7 @@ def ptxas_lines(log: str) -> list[str]:
 def phase_kernels(torch, dev) -> dict:
     from aacjax_torch import testing as TI
     from aacjax_torch.kernels import pipeline as P
-    from aacjax_torch.kernels import synth, tail, tns
+    from aacjax_torch.kernels import synth, tail
     results = {}
     tabs = [P.consts(dev)[k] for k in ("twiddles", "f_table", "s_table",
                                        "rise", "fall")]
@@ -286,30 +296,67 @@ def phase_kernels(torch, dev) -> dict:
         f"{mm:.4f} ms")
     results["_matmul_ms"] = mm
 
-    for C, T, key in ((256, 16, None), (4, 64, "tns")):
-        args = on_dev(TI.random_tns_chunk(5 + C, C, T))
-        out = tns.tns(*args)
-        ref = tns.tns_ref(*args)
+    phase_tns_kernel(torch, dev, results)
+    return results
+
+
+def phase_tns_kernel(torch, dev, results: dict) -> None:
+    """The TNS kernel against its plain version; the serving-mix case at
+    the serving chunk's shape is the one `results` keeps."""
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import pipeline as P
+    from aacjax_torch.kernels import tns
+
+    def on_dev(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def tns_case(name, np_args, packed, key=None):
+        """One TNS input against the plain version: the reference's
+        arguments (f32 spectra, planes per direction) through tns.tns, or
+        compact int16 spectra and the parser's packed planes through
+        tns.tns_packed."""
+        args = on_dev(np_args)
+        fn, ref_fn = ((tns.tns_packed, tns.tns_packed_ref) if packed
+                      else (tns.tns, tns.tns_ref))
+        out = fn(*args)
+        # the plain version is a Python loop over the bins, ~0.3 M small
+        # launches (seconds): one call makes the reference and is timed
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        ref = ref_fn(*args)
+        b.record()
         torch.cuda.synchronize()
-        xmax = float(args[0].abs().max())
+        plain = a.elapsed_time(b)
+        if packed:
+            q, sc, lpc, rng = args
+            xmax = float(P.decompress_i16(q, sc).abs().max())
+            planes = (None, lpc[:, :, 0], rng[:, :, 0, :, 0],
+                      rng[:, :, 0, :, 1], lpc[:, :, 1], rng[:, :, 1, :, 0],
+                      rng[:, :, 1, :, 1])
+        else:
+            xmax = float(args[0].abs().max())
+            planes = args
         err = float((out - ref).abs().max())
-        check(bool(torch.isfinite(out).all()), "tns: non-finite output")
-        check(err <= 1e-6 * xmax, f"tns B={C * T}: err {err} > {1e-6 * xmax}")
-        ms = time_ms(torch, lambda: tns.tns(*args), reps=REPS)
-        dms = device_ms(torch, lambda: tns.tns(*args), "tns_kernel")
-        # the plain version is a Python loop of ~0.5 M small launches
-        # (seconds per call): three runs
-        plain = time_ms(torch, lambda: tns.tns_ref(*args), runs=3)
-        b_ms, b_by = bound(nbytes(*args, out), tns_flops(args))
+        rows = out.shape[0] * out.shape[1]
+        check(bool(torch.isfinite(out).all()), f"tns {name}: non-finite output")
+        check(err <= 1e-6 * xmax, f"tns {name}: err {err} > {1e-6 * xmax}")
+        ms = time_ms(torch, lambda: fn(*args), reps=REPS)
+        dms = device_ms(torch, lambda: fn(*args), "tns_")
+        b_ms, b_by = bound(nbytes(*args, out), tns_flops(planes))
         if key:
             results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None)
-        say(f"kernel tns B={C * T} orders 2/12/20: max err {err} "
-            f"(max|x| {xmax:.1f}); {ms:.4f} ms per call (device {fmt(dms)}), "
-            f"plain {plain:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}); no PyTorch call computes TNS")
-    return results
+        say(f"kernel tns B={rows} {name}: max err {err} (max|x| {xmax:.1f}); "
+            f"{ms:.4f} ms per call (device {fmt(dms)}), plain {plain:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); no PyTorch call computes TNS")
+
+    for C, T in ((4, 64), (256, 16), (1024, 16)):
+        tns_case("orders 2/12/20, whole spectrum, both directions",
+                 TI.random_tns_chunk(5 + C, C, T), False)
+    tns_case("serving mix (40% of rows, order <= 12, bins < 736), compact "
+             "i16 + packed planes", TI.serving_tns_chunk(7, 1024, CHUNK),
+             True, key="tns")
 
 
 def parse_threads(n_streams: int) -> int:
@@ -324,110 +371,155 @@ def parse_threads(n_streams: int) -> int:
 
 
 # -- phase 3: the serving slice ----------------------------------------------
-def phase_slice(torch) -> int:
+def stage_split(torch, dec, chunk, out_int16: bool, runs: int = 5):
+    """One chunk's stages on decoder `dec`, medians of `runs`: the parse on
+    the host clock, H2D / compute / D2H with CUDA events on their streams.
+    Returns seconds (parse, h2d, compute, d2h)."""
+    splits = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        p0 = time.perf_counter()
+        parsed = dec._parse_native(chunk, compact=True)
+        parse_s = time.perf_counter() - p0
+        ev[0].record(dec._h2d_stream)
+        dev = dec._upload_batch(parsed)
+        ev[1].record(dec._h2d_stream)
+        ev[2].record(dec._compute_stream)
+        pcm = dec._device_step(dev, out_int16=out_int16)
+        ev[3].record(dec._compute_stream)
+        torch.cuda.synchronize()
+        ev[4].record(dec._d2h_stream)
+        dec.finalize_step(pcm)
+        ev[5].record(dec._d2h_stream)
+        torch.cuda.synchronize()
+        splits.append((parse_s, ev[0].elapsed_time(ev[1]) / 1e3,
+                       ev[2].elapsed_time(ev[3]) / 1e3,
+                       ev[4].elapsed_time(ev[5]) / 1e3))
+    return tuple(float(v) for v in np.median(np.array(splits), axis=0))
+
+
+def serving_pass(torch, name: str, config, corpus, windows: int,
+                 out_int16: bool, with_tns: bool) -> dict:
+    """`windows` pipelined runs of N_STREAMS streams (the corpus's streams
+    in turn) in chunks of CHUNK frames, each with a fresh decoder after one
+    warm-up chunk; then every chunk of every run against the plain route on
+    the same parsed batches, and one chunk's stage split.  Returns the
+    launch counts of the pipelined runs."""
     import aacjax_torch
     from aacjax_torch.kernels import pipeline as P
     from aacjax_torch.kernels import synth, tail, tns
-    from aacjax_torch.testing import (adts_payloads, assert_pcm_close,
-                                      make_corpus)
+    from aacjax_torch.testing import assert_pcm_close
 
-    t0 = time.perf_counter()
-    config, streams = make_corpus(4, 4.0)
-    corpus = [adts_payloads(d) for d in streams]
-    per_stream = [corpus[i % 4] for i in range(N_STREAMS)]
+    per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
     n_chunks = min(len(p) for p in per_stream) // CHUNK
     chunks = [[p[k * CHUNK:(k + 1) * CHUNK] for p in per_stream]
               for k in range(n_chunks)]
-    say(f"slice: corpus of 4 unique streams x 4 s encoded in "
-        f"{time.perf_counter() - t0:.1f} s; {N_STREAMS} streams x "
-        f"{n_chunks} chunks of {CHUNK} frames")
-    say(f"slice: host has {os.cpu_count()} online cores, "
-        f"AACJAX_PARSE_THREADS={os.environ.get('AACJAX_PARSE_THREADS')}, "
-        f"the native parse uses {parse_threads(N_STREAMS)} threads")
+    say(f"{name}: {N_STREAMS} streams x {n_chunks} chunks of {CHUNK} frames, "
+        f"{'int16' if out_int16 else 'f32'} PCM delivered, compact i16 H2D")
 
     def decoder():
         return aacjax_torch.BatchDecoder([config] * N_STREAMS,
                                          chunk_frames=CHUNK)
 
-    decoder().step_raw(chunks[0], out_int16=True)       # warm-up chunk
+    decoder().step_raw(chunks[0], out_int16=out_int16)      # warm-up chunk
     torch.cuda.synchronize()
-    # WINDOWS pipelined runs over all chunks, each with a fresh decoder
     tail.launches = synth.launches = tns.launches = 0
     walls, runs = [], []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         dec = decoder()
         t1 = time.perf_counter()
-        outs = list(dec.decode_pipelined(iter(chunks), out_int16=True,
+        outs = list(dec.decode_pipelined(iter(chunks), out_int16=out_int16,
                                          compact=True))
         walls.append(time.perf_counter() - t1)
-        check(len(outs) == n_chunks, "decode_pipelined lost chunks")
-        check(not any(st.failed for st in dec.streams), "a stream failed")
+        check(len(outs) == n_chunks, f"{name}: decode_pipelined lost chunks")
+        check(not any(st.failed for st in dec.streams),
+              f"{name}: a stream failed")
         runs.append(outs)
-    launches = tail.launches
-    audio_s = N_STREAMS * n_chunks * CHUNK * 1024 / config.sample_rate
-    say(f"slice: tail launches {launches} for {WINDOWS} x {n_chunks} chunks "
-        f"(synthesis {synth.launches}, tns {tns.launches})")
-    check(launches >= WINDOWS * n_chunks,
-          "the tail kernel did not run every chunk")
+    counts = dict(tail=tail.launches, synthesis=synth.launches,
+                  tns=tns.launches)
+    say(f"{name}: launches {counts} for {windows} x {n_chunks} chunks")
+    check(counts["tail"] >= windows * n_chunks,
+          f"{name}: the tail kernel did not run every chunk")
+    if with_tns:
+        check(counts["tns"] >= windows * n_chunks,
+              f"{name}: the TNS kernel did not run every chunk")
 
     # every chunk of every stream of every run against the plain route on
     # the same parsed batches (a separate decoder parses the same chunks)
     ver = decoder()
     overlap = torch.zeros((ver.C, 1024), device="cuda")
-    worst, n_diff, n_all = 0.0, 0, 0
+    worst, n_diff, n_all, ref_max = 0.0, 0, 0, 0.0
     for k, chunk in enumerate(chunks):
         dev = ver._upload_batch(ver._parse_native(chunk, compact=True))
         ver._h2d_done[0].synchronize()
         facts = {key: dev.pop(key) for key in list(dev) if key[0] == "_"}
+        check(facts["_has_tns"] == with_tns,
+              f"{name}: chunk {k} has_tns is {facts['_has_tns']}")
         flags = P.PipelineFlags(has_stereo=False, has_tns=facts["_has_tns"],
-                                out_int16=True, spec_i16=True,
+                                out_int16=out_int16, spec_i16=True,
                                 has_short=facts["_has_short"])
         ref, overlap = P.decode_spec_step(dev, overlap, flags)
         ref = ref.cpu()
+        ref_max = max(ref_max, float(ref.abs().max()))
         for w, outs in enumerate(runs):
-            worst = max(worst, assert_pcm_close(outs[k], ref, True,
-                                                f"run {w} chunk {k}"))
+            worst = max(worst, assert_pcm_close(outs[k], ref, out_int16,
+                                                f"{name} run {w} chunk {k}"))
             n_diff += int((outs[k] != ref.numpy()).sum())
             n_all += ref.numel()
-    say(f"slice: all {n_chunks} chunks of all {N_STREAMS} streams in all "
-        f"{WINDOWS} runs match the plain route within 1 LSB on < 2% of "
-        f"samples (max int16 delta {worst:.0f}, {n_diff / n_all:.6f} of "
-        f"samples differ)")
+    rule = ("within 1 LSB on < 2% of samples" if out_int16
+            else "within 5e-5 * max|ref| of each chunk")
+    say(f"{name}: all {n_chunks} chunks of all {N_STREAMS} streams in all "
+        f"{windows} runs match the plain route {rule} (max delta {worst}, "
+        f"max|ref| {ref_max}, {n_diff / n_all:.6f} of samples differ)")
 
-    # stage split for one chunk: parse on the host clock, H2D / compute /
-    # D2H with CUDA events on their streams (median of 5)
-    st = decoder()
-    splits = []
-    for _ in range(5):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        p0 = time.perf_counter()
-        parsed = st._parse_native(chunks[1], compact=True)
-        parse_s = time.perf_counter() - p0
-        ev[0].record(st._h2d_stream)
-        dev = st._upload_batch(parsed)
-        ev[1].record(st._h2d_stream)
-        ev[2].record(st._compute_stream)
-        pcm = st._device_step(dev, out_int16=True)
-        ev[3].record(st._compute_stream)
-        torch.cuda.synchronize()
-        ev[4].record(st._d2h_stream)
-        st.finalize_step(pcm)
-        ev[5].record(st._d2h_stream)
-        torch.cuda.synchronize()
-        splits.append((parse_s, ev[0].elapsed_time(ev[1]) / 1e3,
-                       ev[2].elapsed_time(ev[3]) / 1e3,
-                       ev[4].elapsed_time(ev[5]) / 1e3))
-    parse_s, h2d_s, comp_s, d2h_s = np.median(np.array(splits), axis=0)
+    parse_s, h2d_s, comp_s, d2h_s = stage_split(torch, decoder(), chunks[1],
+                                                out_int16)
     chunk_audio = N_STREAMS * CHUNK * 1024 / config.sample_rate
-    rtx = [audio_s / w for w in walls]
-    say(f"slice: aggregate_realtime_x {float(np.median(rtx)):.1f} "
-        f"(median of {WINDOWS} runs of {audio_s:.1f} s of audio, int16 PCM "
-        f"delivered, compact i16 H2D; runs {[round(x, 1) for x in rtx]}, "
-        f"walls {[round(w, 3) for w in walls]} s)")
-    say(f"slice: per-chunk stages ({chunk_audio:.1f} s of audio): parse "
-        f"{parse_s:.4f} s, h2d {h2d_s:.4f} s, compute {comp_s:.4f} s, "
-        f"d2h {d2h_s:.4f} s")
-    return launches
+    audio_s = chunk_audio * n_chunks
+    if not with_tns:
+        rtx = [audio_s / w for w in walls]
+        say(f"{name}: aggregate_realtime_x {float(np.median(rtx)):.1f} "
+            f"(median of {windows} runs of {audio_s:.1f} s of audio; runs "
+            f"{[round(x, 1) for x in rtx]}, walls "
+            f"{[round(w, 3) for w in walls]} s)")
+    say(f"{name}: wall per chunk "
+        f"{[round(w / n_chunks, 4) for w in walls]} s; per-chunk stages "
+        f"({chunk_audio:.1f} s of audio): parse {parse_s:.4f} s, h2d "
+        f"{h2d_s:.4f} s, compute {comp_s:.4f} s, d2h {d2h_s:.4f} s")
+    return counts
+
+
+def phase_slice(torch) -> dict:
+    """The LC-512 pass: the reference's headline corpus (no TNS, long
+    windows), int16 PCM."""
+    from aacjax_torch.testing import adts_payloads, make_corpus
+    t0 = time.perf_counter()
+    config, streams = make_corpus(4, 4.0)
+    say(f"slice: corpus of 4 unique streams x 4 s encoded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"slice: host has {os.cpu_count()} online cores, "
+        f"AACJAX_PARSE_THREADS={os.environ.get('AACJAX_PARSE_THREADS')}, "
+        f"the native parse uses {parse_threads(N_STREAMS)} threads")
+    return serving_pass(torch, "slice", config,
+                        [adts_payloads(d) for d in streams], WINDOWS,
+                        out_int16=True, with_tns=False)
+
+
+def phase_slice_tns(torch) -> dict:
+    """The LC-512-tns pass: the same width over random legal frames that
+    carry TNS (and M/S and short windows), so that every chunk takes the
+    TNS kernel and then the tail kernel on f32 spectra.  f32 PCM: the
+    corpus's noise has gains up to 2^20, most of its samples saturate
+    int16, and the 1-LSB rule would then test the corpus, not the
+    kernels."""
+    from aacjax_torch.testing import adts_payloads, tns_serving_corpus
+    t0 = time.perf_counter()
+    config, streams = tns_serving_corpus()
+    say(f"slice-tns: corpus of {len(streams)} unique streams of random "
+        f"frames written in {time.perf_counter() - t0:.1f} s")
+    return serving_pass(torch, "slice-tns", config,
+                        [adts_payloads(d) for d in streams], TNS_WINDOWS,
+                        out_int16=False, with_tns=True)
 
 
 # -- phase 4: decode_adts ----------------------------------------------------
@@ -512,10 +604,12 @@ def main() -> None:
 
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)
-    results["tail"]["launches"] = phase_slice(torch)
+    results["tail"]["launches"] = phase_slice(torch)["tail"]
+    served = phase_slice_tns(torch)
+    results["tail"]["launches"] += served["tail"]
     counts = phase_decode_adts(torch)
     results["synthesis"]["launches"] = counts["synthesis"]
-    results["tns"]["launches"] = counts["tns"]
+    results["tns"]["launches"] = served["tns"] + counts["tns"]
 
     src = "aacjax_torch/kernels/csrc/"
     meta = {"tail": (src + "filterbank.cu", "aacjax/kernels/pallas_tail.py:190"),

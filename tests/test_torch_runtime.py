@@ -15,7 +15,8 @@ from aacjax.host import native
 from aacjax.runtime.batch import BatchDecoder as JaxBatchDecoder
 from aacjax.testing.streams import make_lc_payload_chunks
 import aacjax_torch
-from aacjax_torch.testing import (assert_pcm_close, encode_adts,
+from aacjax_torch.testing import (adts_payloads, assert_pcm_close,
+                                  encode_adts, tns_serving_corpus,
                                   tns_short_adts, tone_pcm)
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -38,6 +39,53 @@ def test_decode_pipelined_matches_reference(compact, out_int16):
     assert dec.stats.steps == 3
     assert dec.stats.stream_frames == ref.stats.stream_frames
     np.testing.assert_array_equal(dec.prev_shapes, ref.prev_shapes)
+
+
+def _tns_serving_chunks(n_streams, chunk_frames, n_chunks):
+    """Payload chunks of the TNS serving corpus: its streams in turn."""
+    config, streams = tns_serving_corpus(4, chunk_frames * n_chunks)
+    corpus = [adts_payloads(d) for d in streams]
+    per_stream = [corpus[i % len(corpus)] for i in range(n_streams)]
+    return [config] * n_streams, [
+        [p[k * chunk_frames:(k + 1) * chunk_frames] for p in per_stream]
+        for k in range(n_chunks)]
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_decode_pipelined_tns_corpus_matches_reference(compact):
+    """8 streams x 2 chunks of the TNS serving corpus (M/S, short windows,
+    TNS in both directions): every chunk takes the TNS route.  f32 PCM: the
+    corpus's noise reaches gains of 2^20 and most of it saturates int16."""
+    configs, chunks = _tns_serving_chunks(8, 8, 2)
+    ref = JaxBatchDecoder(configs, chunk_frames=8)
+    want = list(ref.decode_pipelined(iter(chunks), out_int16=False,
+                                      compact=compact))
+    dec = aacjax_torch.BatchDecoder(configs, chunk_frames=8, device="cpu")
+    parsed = dec._parse_native(chunks[0], compact=compact)
+    assert parsed["_has_tns"] and {"tns_lpc", "tns_range"} <= set(parsed)
+    dec = aacjax_torch.BatchDecoder(configs, chunk_frames=8, device="cpu")
+    got = list(dec.decode_pipelined(iter(chunks), out_int16=False,
+                                    compact=compact))
+    assert len(got) == len(want) == 2
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert np.abs(w).max() > 1.0            # far outside the int16 range
+        assert_pcm_close(g, w, False, f"chunk {k}")
+    np.testing.assert_array_equal(dec.prev_shapes, ref.prev_shapes)
+
+
+def test_state_handover_from_jax_on_tns_stream():
+    """Chunk 0 of a TNS corpus in JAX, its state restored into the port,
+    chunk 1 in both."""
+    configs, chunks = _tns_serving_chunks(2, 8, 2)
+    ref = JaxBatchDecoder(configs, chunk_frames=8)
+    ref.step_raw(chunks[0], out_int16=False)
+    state = ref.save_state()
+    want = ref.step_raw(chunks[1], out_int16=False)
+    dec = aacjax_torch.BatchDecoder(configs, chunk_frames=8, device="cpu")
+    dec.restore_state(state)
+    got = dec.step_raw(chunks[1], out_int16=False)
+    assert_pcm_close(got, want, False)
+    assert dec.save_state()["frames_decoded"] == [16, 16]
 
 
 def test_decode_adts_tns_short_matches_reference():
