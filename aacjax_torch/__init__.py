@@ -1,8 +1,12 @@
-"""aacjax_torch — the AAC-LC serving path of `aacjax`, in PyTorch for CUDA.
+"""aacjax_torch — the non-SBR decoder of `aacjax`, in PyTorch for CUDA.
+
+AAC-LC, Main, LTP, ER-LC, LD and ELD streams, mono through 7.1 with coupling
+channels, through `decode_adts`, `decode_loas`, `BatchDecoder` and the
+streaming `AACDecoder`; HE-AAC (SBR, Parametric Stereo) is not ported yet.
 
 The device side runs hand-written CUDA kernels for Hopper (sm_90a): the
-fused decode tail, the synthesis filterbank and the TNS recurrence
-(`aacjax_torch.kernels`).  The host side (ADTS, ASC, the bitstream syntax,
+fused decode tail, the synthesis filterbank, the TNS recurrence and the
+Main-profile predictor (`aacjax_torch.kernels`).  The host side (ADTS, ASC, the bitstream syntax,
 the ctypes binding to the native C++ parser, the constant tables) is the
 port's own copy of `aacjax`'s host modules (`aacjax_torch.host`,
 `aacjax_torch.tables`): the port imports nothing of `aacjax` and no JAX.
@@ -16,7 +20,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from aacjax_torch.api import decode_adts  # noqa: E402
+from aacjax_torch.api import (AACDecoder, decode_adts, decode_loas,  # noqa: E402
+                              probe, to_canonical_order)
 from aacjax_torch.runtime.batch import BatchDecoder  # noqa: E402
 
-__all__ = ["BatchDecoder", "decode_adts"]
+__all__ = ["AACDecoder", "BatchDecoder", "decode_adts", "decode_loas",
+           "probe", "to_canonical_order"]

@@ -22,7 +22,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "aacjax_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+              "--threads", "0"]      # the sources compile side by side
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +42,9 @@ _SIGNATURES = {
     "aacjax_tns": [_P, _P, _I,                  # x, scale, x_i16
                    _P, _P, _I,                  # fwd lpc, rev lpc, row stride
                    _P, _P, _P, _P, _I, _I,      # fwd/rev start, end; strides
-                   _P, _P, _P, _I, _P],         # out, items, counts, rows, stream
+                   _P, _P, _P, _I, _I, _P],     # out, items, counts, rows, F, stream
+    "aacjax_pred": [_P, _P, _P, _P, _P,         # spec, mode, reset, nbins, used
+                    _P, _P, _I, _I, _I, _P],    # state in, out, C, T, F, stream
 }
 
 

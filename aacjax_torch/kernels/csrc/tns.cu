@@ -6,12 +6,15 @@
 // Per filter: y[n] = x[n] - sum_i lpc[i] * y[n-1-i] over the filter's bins
 // [start, end), order <= 20, taps that reach before `start` left out, up to
 // 8 filters per row and direction.  A reverse filter runs on the flipped
-// spectrum with the host-transformed range (start' = 1024 - end).  Every
+// spectrum with the host-transformed range (start' = F - end; F bins a row,
+// 1024, 960, 512 or 480).  Every
 // filter reads the INPUT spectrum; a forward filter's bins take the forward
 // result, a reverse filter's bins the reverse result (it wins where both
 // claim a bin, as in the reference), every other bin passes through.  The
 // filters of one direction are disjoint, as the parser writes them and the
-// reference requires.
+// reference requires.  The kernels are compiled twice: with F = 1024 a
+// constant (the serving path, whose times PERF.md keeps) and with F read at
+// run time for the frame lengths 960, 512 and 480.
 //
 // The recursion state is an unevaluated f32 hi + lo pair, the sums Knuth's
 // TwoSum in __fadd_rn / __fsub_rn (nvcc would otherwise contract a*b+c).
@@ -68,7 +71,7 @@
 
 namespace {
 
-constexpr int F = 1024;
+constexpr int MAX_F = 1024;         // the frame length F is 1024, 960, 512 or 480
 constexpr int SLOTS = 8;
 constexpr int ORDER = 20;
 constexpr int BLOCK_BINS = 16;      // bins per scale of the compact spectra
@@ -91,6 +94,7 @@ struct Planes {
   const int* start_r;
   const int* end_r;
   int lpc_row, rng_row, rng_slot;
+  int frame;    // bins per row (F)
 };
 
 // a + b = s + e exactly
@@ -111,7 +115,7 @@ __device__ __forceinline__ void tap_prod(float c, float h_hi, float h_lo,
 // The four bins of aligned group g of a row, decompressed where compact.
 template <bool I16>
 __device__ __forceinline__ float4 load_group(const void* x, const float* scale,
-                                             long row, int g) {
+                                             int F, long row, int g) {
   if (I16) {
     const short4 q = __ldg(
         reinterpret_cast<const short4*>(static_cast<const int16_t*>(x) + row * F) + g);
@@ -128,8 +132,10 @@ __device__ __forceinline__ float4 load_group(const void* x, const float* scale,
 // covers it), and the next bin at which that can change.  Returns the next
 // bin, complemented (negative) when bin n is not owned.  rs / re point at
 // the row's reverse start / end, in flipped coordinates.
+template <int FT>
 __device__ __noinline__ int forward_ownership(const int* rs, const int* re,
-                                              int slot_stride, int n) {
+                                              int slot_stride, int frame, int n) {
+  const int F = FT ? FT : frame;
   bool own = true;
   int next = F;
   for (int s = 0; s < SLOTS; ++s) {
@@ -143,10 +149,11 @@ __device__ __noinline__ int forward_ownership(const int* rs, const int* re,
 }
 
 // One work item: filter `slot` of direction `rev` of `row`, order <= K.
-template <int K, bool I16>
+template <int K, int FT, bool I16>
 __device__ __forceinline__ void run_item(const void* x, const float* scale,
                                          const Planes& pl, int item,
                                          float* out) {
+  const int F = FT ? FT : pl.frame;
   const long row = item >> 4;
   const bool rev = (item >> 3) & 1;
   const int slot = item & 7;
@@ -165,7 +172,7 @@ __device__ __forceinline__ void run_item(const void* x, const float* scale,
   bool own = true;
   int next = F;               // the bin at which `own` is looked up again
   if (!rev) {
-    const int r = forward_ownership(rs, re, pl.rng_slot, start);
+    const int r = forward_ownership<FT>(rs, re, pl.rng_slot, F, start);
     own = r >= 0;
     next = own ? r : ~r;
   }
@@ -174,12 +181,12 @@ __device__ __forceinline__ void run_item(const void* x, const float* scale,
   // Bins n count along the walk (the flipped spectrum for a reverse item);
   // walk group G is memory group G, or F / 4 - 1 - G with its bins turned.
   const int g_last = (end - 1) / GROUP;
-  float4 cur = load_group<I16>(x, scale, row,
+  float4 cur = load_group<I16>(x, scale, F, row,
                                rev ? F / GROUP - 1 - start / GROUP : start / GROUP);
   for (int G = start / GROUP; G <= g_last; ++G) {
     const int g = rev ? F / GROUP - 1 - G : G;
     const int g_next = G < g_last ? (rev ? g - 1 : g + 1) : g;
-    const float4 ahead = load_group<I16>(x, scale, row, g_next);
+    const float4 ahead = load_group<I16>(x, scale, F, row, g_next);
     const int n0 = G * GROUP;
     const float xs[GROUP] = {rev ? cur.w : cur.x, rev ? cur.z : cur.y,
                              rev ? cur.y : cur.z, rev ? cur.x : cur.w};
@@ -214,7 +221,7 @@ __device__ __forceinline__ void run_item(const void* x, const float* scale,
       for (int j = 0; j < GROUP; ++j) {
         const int n = n0 + j;
         if (n == next) {
-          const int r = forward_ownership(rs, re, pl.rng_slot, n);
+          const int r = forward_ownership<FT>(rs, re, pl.rng_slot, F, n);
           own = r >= 0;
           next = own ? r : ~r;
         }
@@ -234,7 +241,7 @@ __device__ __forceinline__ void run_item(const void* x, const float* scale,
 // items of one list at a time (the loads of the heaviest list first), warp
 // after warp; `lanes` grows from 1 to 32 with the number of items so that
 // `target_warps` warps have work before any takes a second load.
-template <bool I16>
+template <int FT, bool I16>
 __global__ void __launch_bounds__(32) tns_filter_kernel(
     const void* __restrict__ x, const float* __restrict__ scale, Planes pl,
     const int* __restrict__ items, const int* __restrict__ counts, int cap,
@@ -255,10 +262,10 @@ __global__ void __launch_bounds__(32) tns_filter_kernel(
     if (lane >= lanes || it >= count[l]) continue;
     const int item = items[static_cast<long>(l) * cap + it];
     switch (l / LEN_BUCKETS) {
-      case 0: run_item<4, I16>(x, scale, pl, item, out); break;
-      case 1: run_item<8, I16>(x, scale, pl, item, out); break;
-      case 2: run_item<12, I16>(x, scale, pl, item, out); break;
-      default: run_item<20, I16>(x, scale, pl, item, out); break;
+      case 0: run_item<4, FT, I16>(x, scale, pl, item, out); break;
+      case 1: run_item<8, FT, I16>(x, scale, pl, item, out); break;
+      case 2: run_item<12, FT, I16>(x, scale, pl, item, out); break;
+      default: run_item<20, FT, I16>(x, scale, pl, item, out); break;
     }
   }
 }
@@ -266,11 +273,12 @@ __global__ void __launch_bounds__(32) tns_filter_kernel(
 // The pass-through of every bin, and the work lists.  items holds N_LISTS
 // lists of `cap` entries, (row << 4) | (direction << 3) | slot; list
 // 8 * (order class) + (length - 1) / 128; counts [N_LISTS] starts at zero.
-template <bool I16>
+template <int FT, bool I16>
 __global__ void __launch_bounds__(PREP_THREADS) tns_prepare_kernel(
     const void* __restrict__ x, const float* __restrict__ scale, Planes pl,
     float* __restrict__ out, int* __restrict__ items, int* __restrict__ counts,
     int rows, int cap) {
+  const int F = FT ? FT : pl.frame;
   const int tid = threadIdx.x;
   const long row = static_cast<long>(blockIdx.x) * PREP_ROWS + tid / 128;
   const int t = tid % 128;
@@ -280,9 +288,7 @@ __global__ void __launch_bounds__(PREP_THREADS) tns_prepare_kernel(
       const short4* q = reinterpret_cast<const short4*>(
           static_cast<const int16_t*>(x) + row * F);
       const float* sc = scale + row * (F / BLOCK_BINS);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int v = h * 128 + t;            // bins 4 v .. 4 v + 3
+      for (int v = t; v < F / 4; v += 128) {  // bins 4 v .. 4 v + 3
         const short4 a = __ldg(q + v);
         const float s = __ldg(sc + v / (BLOCK_BINS / 4));
         o[v] = make_float4(__fmul_rn(static_cast<float>(a.x), s),
@@ -293,8 +299,7 @@ __global__ void __launch_bounds__(PREP_THREADS) tns_prepare_kernel(
     } else {
       const float4* xi = reinterpret_cast<const float4*>(
           static_cast<const float*>(x) + row * F);
-      o[t] = __ldg(xi + t);
-      o[t + 128] = __ldg(xi + t + 128);
+      for (int v = t; v < F / 4; v += 128) o[v] = __ldg(xi + v);
     }
   }
   if (tid >= 32) return;
@@ -318,7 +323,7 @@ __global__ void __launch_bounds__(PREP_THREADS) tns_prepare_kernel(
   }
   const int cls = order <= 4 ? 0 : order <= 8 ? 1 : order <= 12 ? 2 : 3;
   const int list =
-      order > 0 ? cls * LEN_BUCKETS + (length - 1) / (F / LEN_BUCKETS) : -1;
+      order > 0 ? cls * LEN_BUCKETS + (length - 1) / (MAX_F / LEN_BUCKETS) : -1;
   // the lanes with the same list append together
   const unsigned m = __match_any_sync(0xffffffffu, list);
   const int leader = __ffs(m) - 1;
@@ -330,7 +335,7 @@ __global__ void __launch_bounds__(PREP_THREADS) tns_prepare_kernel(
         static_cast<int>(prow << 4) | (rev << 3) | slot;
 }
 
-template <bool I16>
+template <int FT, bool I16>
 int launch_all(const void* x, const float* scale, const Planes& pl, float* out,
                int* items, int* counts, int rows, cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -339,7 +344,7 @@ int launch_all(const void* x, const float* scale, const Planes& pl, float* out,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cap = rows * 2 * SLOTS;
-  tns_prepare_kernel<I16>
+  tns_prepare_kernel<FT, I16>
       <<<(rows + PREP_ROWS - 1) / PREP_ROWS, PREP_THREADS, 0, stream>>>(
           x, scale, pl, out, items, counts, rows, cap);
   err = cudaGetLastError();
@@ -347,7 +352,7 @@ int launch_all(const void* x, const float* scale, const Planes& pl, float* out,
   // enough warps for long lists to keep every scheduler busy, never more
   // than there can be items
   const int blocks = cap < sms * WARPS_PER_SM ? cap : sms * WARPS_PER_SM;
-  tns_filter_kernel<I16><<<blocks, 32, 0, stream>>>(
+  tns_filter_kernel<FT, I16><<<blocks, 32, 0, stream>>>(
       x, scale, pl, items, counts, cap, sms * SCHEDULERS_PER_SM, out);
   err = cudaGetLastError();
   return static_cast<int>(err);
@@ -355,8 +360,9 @@ int launch_all(const void* x, const float* scale, const Planes& pl, float* out,
 
 }  // namespace
 
-// x is f32 [rows][1024] (x_i16 = 0, scale unused) or int16 [rows][1024] with
-// scale f32 [rows][64].  items is int32 [32][16 * rows] scratch, counts int32
+// x is f32 [rows][frame] (x_i16 = 0, scale unused) or int16 [rows][frame]
+// with scale f32 [rows][frame / 16]; frame is a multiple of 16, at most 1024
+// (the frame lengths 1024, 960, 512, 480).  items is int32 [32][16 * rows] scratch, counts int32
 // [32] zeroed by the caller on the same stream.  Returns the first CUDA
 // error of its launches, 0 for none.
 extern "C" int aacjax_tns(const void* x, const void* scale, int x_i16,
@@ -364,20 +370,27 @@ extern "C" int aacjax_tns(const void* x, const void* scale, int x_i16,
                           const void* start_f, const void* end_f,
                           const void* start_r, const void* end_r, int rng_row,
                           int rng_slot, void* out, void* items, void* counts,
-                          int rows, void* stream) {
-  if (rows < 1 || rows > (1 << 26)) return static_cast<int>(cudaErrorInvalidValue);
+                          int rows, int frame, void* stream) {
+  if (rows < 1 || rows > (1 << 26) || frame < BLOCK_BINS || frame > MAX_F ||
+      frame % BLOCK_BINS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Planes pl = {static_cast<const float*>(lpc_f),
                      static_cast<const float*>(lpc_r),
                      static_cast<const int*>(start_f),
                      static_cast<const int*>(end_f),
                      static_cast<const int*>(start_r),
                      static_cast<const int*>(end_r),
-                     lpc_row, rng_row, rng_slot};
+                     lpc_row, rng_row, rng_slot, frame};
   const float* sc = static_cast<const float*>(scale);
   float* y = static_cast<float*>(out);
   int* list = static_cast<int*>(items);
   int* cnt = static_cast<int*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_i16 ? launch_all<true>(x, sc, pl, y, list, cnt, rows, st)
-               : launch_all<false>(x, sc, pl, y, list, cnt, rows, st);
+  // 1024 bins a row, the serving path, is compiled with F a constant; the
+  // other frame lengths share one version that reads F from `pl`
+  if (frame == MAX_F)
+    return x_i16 ? launch_all<MAX_F, true>(x, sc, pl, y, list, cnt, rows, st)
+                 : launch_all<MAX_F, false>(x, sc, pl, y, list, cnt, rows, st);
+  return x_i16 ? launch_all<0, true>(x, sc, pl, y, list, cnt, rows, st)
+               : launch_all<0, false>(x, sc, pl, y, list, cnt, rows, st);
 }

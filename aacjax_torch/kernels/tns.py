@@ -31,6 +31,7 @@ from aacjax_torch.kernels import _build
 from aacjax_torch.kernels.pipeline import decompress_i16
 
 FRAME = 1024
+FRAME_LENGTHS = (1024, 960, 512, 480)   # what the kernel takes (F % 16 == 0)
 SLOTS = 8
 ORDER = 20
 ORDER_CLASSES = (4, 8, 12, 20)   # a work item runs the taps of its class
@@ -132,7 +133,15 @@ def tns_packed_ref(spec, spec_scale, tns_lpc, tns_range):
                    tns_range[:, :, 1, :, 0], tns_range[:, :, 1, :, 1])
 
 
-def _launch(x, scale, C, T, lpc_f, lpc_r, lpc_row, ranges, rng_row, rng_slot):
+def _frame_len(spec) -> int:
+    if spec.dim() != 3 or spec.shape[-1] not in FRAME_LENGTHS:
+        raise ValueError(f"spec: shape {tuple(spec.shape)}, expected [C,T,F] "
+                         f"with F one of {FRAME_LENGTHS}")
+    return spec.shape[-1]
+
+
+def _launch(x, scale, C, T, F, lpc_f, lpc_r, lpc_row, ranges, rng_row,
+            rng_slot):
     """Launch csrc/tns.cu on checked tensors.  lpc_f / lpc_r and the four
     `ranges` (forward start, end, reverse start, end) are addresses; the
     strides count elements.  Output, work lists and counters are allocated
@@ -140,7 +149,7 @@ def _launch(x, scale, C, T, lpc_f, lpc_r, lpc_row, ranges, rng_row, rng_slot):
     global launches
     dev = x.device
     rows = C * T
-    out = torch.empty((C, T, FRAME), dtype=torch.float32, device=dev)
+    out = torch.empty((C, T, F), dtype=torch.float32, device=dev)
     items = torch.empty((N_LISTS, 2 * SLOTS * rows), dtype=torch.int32,
                         device=dev)
     counts = torch.zeros(N_LISTS, dtype=torch.int32, device=dev)
@@ -148,62 +157,59 @@ def _launch(x, scale, C, T, lpc_f, lpc_r, lpc_row, ranges, rng_row, rng_slot):
                   0 if scale is None else scale.data_ptr(),
                   0 if scale is None else 1, lpc_f, lpc_r, lpc_row, *ranges,
                   rng_row, rng_slot, out.data_ptr(), items.data_ptr(),
-                  counts.data_ptr(), rows,
+                  counts.data_ptr(), rows, F,
                   torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out
 
 
 def tns(spec, fwd_lpc, fwd_start, fwd_end, rev_lpc, rev_start, rev_end):
-    """TNS over a [C,T,1024] f32 chunk: lpc f32 [C,T,8,20], start/end int32
-    [C,T,8] per direction (the filters of one direction disjoint).  Returns
-    the filtered spectra [C,T,1024].  The kernel reads the six planes where
+    """TNS over a [C,T,F] f32 chunk (F 1024, 960, 512 or 480): lpc f32
+    [C,T,8,20], start/end int32 [C,T,8] per direction (the filters of one
+    direction disjoint).  Returns the filtered spectra [C,T,F].  The kernel reads the six planes where
     they lie, through per-direction pointers and strides."""
     args = (spec, fwd_lpc, fwd_start, fwd_end, rev_lpc, rev_start, rev_end)
     if spec.device.type == "cpu":
         return tns_ref(*args)
     _build.require_cuda(spec, "tns")
-    if spec.dim() != 3:
-        raise ValueError(f"spec: shape {tuple(spec.shape)}, expected [C,T,1024]")
-    C, T, _ = spec.shape
+    C, T, F = spec.shape[0], spec.shape[1], _frame_len(spec)
     dev = spec.device
     ck = _build.check
-    ck(spec, "spec", torch.float32, (C, T, FRAME), dev, align=16)
+    ck(spec, "spec", torch.float32, (C, T, F), dev, align=16)
     ptrs = {}
     for d in ("fwd", "rev"):
         lpc, st, en = (args[1:4] if d == "fwd" else args[4:7])
         ptrs[d] = (ck(lpc, f"{d}_lpc", torch.float32, (C, T, SLOTS, ORDER), dev),
                    ck(st, f"{d}_start", torch.int32, (C, T, SLOTS), dev),
                    ck(en, f"{d}_end", torch.int32, (C, T, SLOTS), dev))
-    return _launch(spec, None, C, T, ptrs["fwd"][0], ptrs["rev"][0],
+    return _launch(spec, None, C, T, F, ptrs["fwd"][0], ptrs["rev"][0],
                    SLOTS * ORDER, (*ptrs["fwd"][1:], *ptrs["rev"][1:]),
                    SLOTS, 1)
 
 
 def tns_packed(spec, spec_scale, tns_lpc, tns_range):
-    """TNS as a serving chunk has it: spec f32 [C,T,1024] with spec_scale
-    None, or compact int16 [C,T,1024] with spec_scale f32 [C,T,64] (the
+    """TNS as a serving chunk has it: spec f32 [C,T,F] (F 1024, 960, 512 or
+    480) with spec_scale None, or compact int16 with spec_scale f32
+    [C,T,F/16] (the
     kernel decompresses, the same product as decompress_i16); tns_lpc f32
     [C,T,2,8,20] and tns_range int32 [C,T,2,8,2] as the native parser packs
     them (bank 0 forward, bank 1 reverse in flipped coordinates; (start,
-    end) pairs).  Returns the filtered f32 spectra [C,T,1024]."""
+    end) pairs).  Returns the filtered f32 spectra [C,T,F]."""
     if spec.device.type == "cpu":
         return tns_packed_ref(spec, spec_scale, tns_lpc, tns_range)
     _build.require_cuda(spec, "tns_packed")
-    if spec.dim() != 3:
-        raise ValueError(f"spec: shape {tuple(spec.shape)}, expected [C,T,1024]")
-    C, T, _ = spec.shape
+    C, T, F = spec.shape[0], spec.shape[1], _frame_len(spec)
     dev = spec.device
     ck = _build.check
     if spec_scale is None:
-        ck(spec, "spec", torch.float32, (C, T, FRAME), dev, align=16)
+        ck(spec, "spec", torch.float32, (C, T, F), dev, align=16)
     else:
-        ck(spec, "spec", torch.int16, (C, T, FRAME), dev, align=8)
-        ck(spec_scale, "spec_scale", torch.float32, (C, T, FRAME // 16), dev)
+        ck(spec, "spec", torch.int16, (C, T, F), dev, align=8)
+        ck(spec_scale, "spec_scale", torch.float32, (C, T, F // 16), dev)
     lpc = ck(tns_lpc, "tns_lpc", torch.float32, (C, T, 2, SLOTS, ORDER), dev)
     rng = ck(tns_range, "tns_range", torch.int32, (C, T, 2, SLOTS, 2), dev)
     rev = 4 * SLOTS * 2              # bytes from bank 0 to bank 1
-    return _launch(spec, spec_scale, C, T, lpc, lpc + 4 * SLOTS * ORDER,
+    return _launch(spec, spec_scale, C, T, F, lpc, lpc + 4 * SLOTS * ORDER,
                    2 * SLOTS * ORDER, (rng, rng + 4, rng + rev, rng + rev + 4),
                    2 * SLOTS * 2, 2)
 

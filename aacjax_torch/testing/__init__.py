@@ -11,7 +11,8 @@ from aacjax_torch.host import adts
 from aacjax_torch.host.asc import StreamConfig, make_asc, parse_asc
 from aacjax_torch.host.bitio import BitWriter
 from aacjax_torch.testing import encoder as enc
-from aacjax_torch.testing.specgen import random_cpe_spec
+from aacjax_torch.testing.specgen import (random_channel_spec,
+                                          random_cpe_spec)
 
 SR = 44100
 FRAME = 1024
@@ -271,3 +272,267 @@ def make_corpus(n_unique: int, seconds: float, sr: int = 44100):
 def adts_payloads(data: bytes) -> list[bytes]:
     """The raw_data_block payloads of an ADTS stream."""
     return [data[s:e] for _, s, e in adts.split_frames(data)]
+
+
+# -- streams of the profiles and tools beyond the LC serving path ---------------
+def window_chain(rng, n: int, p_short: float = 0.12) -> list[int]:
+    """A legal window-sequence chain of n frames: mostly ONLY_LONG, with
+    runs of EIGHT_SHORT entered through LONG_START and left through
+    LONG_STOP."""
+    seqs, cur = [], 0
+    for _ in range(n):
+        seqs.append(cur)
+        if cur in (0, 3):
+            cur = 1 if rng.random() < p_short else 0
+        else:                               # LONG_START or EIGHT_SHORT
+            cur = 2 if rng.random() < 0.5 else 3
+    return seqs
+
+
+def main_config(channels: int = 2) -> StreamConfig:
+    """AAC Main, 44.1 kHz."""
+    return parse_asc(make_asc(1, 4, channels))
+
+
+def main_stereo_payloads(n_frames: int, seed: int, intensity: bool = False,
+                         tns: bool = True) -> list[bytes]:
+    """raw_data_blocks of a Main-profile stereo stream: random legal CPE
+    frames with a common window, M/S, prediction_used bits on the long
+    frames (max_sfb 42), a predictor reset group on every fifth frame,
+    runs of EIGHT_SHORT frames (which reset the predictor) and TNS on about
+    half of the channel-frames.  No PNS and no pulse data.  With
+    `intensity` the right channel's first band is intensity-coded, which
+    the native parser delegates to the python parser and packer."""
+    rng = np.random.default_rng(seed)
+    cfg = main_config(2)
+    out = []
+    for f, seq in enumerate(window_chain(rng, n_frames)):
+        kw = dict(window_sequence=seq, allow_pulse=False, allow_noise=False,
+                  allow_tns=tns)
+        if seq != 2:
+            kw["max_sfb"] = 42
+        left = random_channel_spec(rng, cfg, **kw)
+        right = random_channel_spec(
+            rng, cfg, **{**kw, "max_sfb": left.max_sfb},
+            grouping=left.grouping, window_shape=left.window_shape)
+        if seq != 2:
+            n = min(left.max_sfb, cfg.pred_sfb_max)
+            for ch in (left, right):
+                ch.pred_used = rng.integers(0, 2, n) > 0
+                ch.pred_reset_group = (f % 30) + 1 if f % 5 == 4 else 0
+        if intensity:
+            right.band_books[0] = enc.INTENSITY
+            right.band_sf[0] = 0
+            right.quant[:int(cfg.swb_offsets_long[1])] = 0
+        ms_type = 0 if intensity else int(rng.integers(0, 3))
+        n_idx = left.group_count * left.max_sfb
+        ms_used = ((rng.random(n_idx) < 0.5).astype(np.int64)
+                   if ms_type == 1 else None)
+        w = BitWriter()
+        enc.write_cpe(w, enc.CPESpec(left=left, right=right,
+                                     common_window=True, ms_type=ms_type,
+                                     ms_used=ms_used), cfg)
+        out.append(enc.end_frame(w))
+    return out
+
+
+def main_stereo_adts(n_frames: int, seed: int, **kw) -> bytes:
+    cfg = main_config(2)
+    return b"".join(enc.adts_frame(p, cfg)
+                    for p in main_stereo_payloads(n_frames, seed, **kw))
+
+
+def main_serving_corpus(n_unique: int = 4, n_frames: int = 48):
+    """A serving corpus of Main-profile stereo streams
+    (`main_stereo_payloads`, seeds 0..n_unique-1, no intensity).  Like the
+    TNS corpus its audio is synthetic noise far outside the int16 range.
+    Returns (config, list of payload lists)."""
+    return main_config(2), [main_stereo_payloads(n_frames, seed=i)
+                            for i in range(n_unique)]
+
+
+def _coupling_element(rng, config, point: int, targets, instance: int = 0):
+    """A CCE over long windows: dependent BEFORE_TNS (0) / AFTER_TNS (1)
+    with per-band gain deltas, or independent AFTER_IMDCT (2)."""
+    ics = random_channel_spec(rng, config, window_sequence=0, allow_tns=False,
+                              allow_noise=False, allow_pulse=False)
+    n_coded = int(np.count_nonzero(ics.band_books))
+    n_lists = sum(2 if (pair and sel == 3) else 1
+                  for pair, _, sel in targets) - 1
+    lists = [(0 if point != 2 else 1, 3,
+              [int(rng.integers(-3, 4)) for _ in range(n_coded)])
+             for _ in range(n_lists)]
+    return enc.CCESpec(ics=ics, coupling_point=point, targets=targets,
+                       sign=int(rng.integers(2)), scale_idx=1,
+                       gain_lists=lists), instance
+
+
+def _tns_cpe(rng, config):
+    """A common-window CPE whose two channels both carry TNS, no M/S."""
+    left = random_channel_spec(rng, config, force_tns=True, allow_pulse=False)
+    right = random_channel_spec(
+        rng, config, window_sequence=left.window_sequence,
+        grouping=left.grouping, max_sfb=left.max_sfb,
+        window_shape=left.window_shape, force_tns=True, allow_pulse=False)
+    return enc.CPESpec(left=left, right=right, common_window=True, ms_type=0,
+                       ms_used=np.zeros(128, bool))
+
+
+def cce_stereo_payloads(n_frames: int, seed: int, point: int,
+                        target_tns: bool = False) -> list[bytes]:
+    """AAC-LC stereo frames, each a CPE (with TNS on both channels when
+    `target_tns`) followed by one CCE at `point` coupled onto both channels
+    with separate gains.  AFTER_TNS onto TNS'd targets and AFTER_IMDCT
+    reach the device as coupling entries; the rest the native parser fuses
+    on the host."""
+    rng = np.random.default_rng(seed)
+    config = lc_stereo_config()
+    out = []
+    for _ in range(n_frames):
+        w = BitWriter()
+        cpe = (_tns_cpe(rng, config) if target_tns
+               else random_cpe_spec(rng, config, common=True))
+        enc.write_cpe(w, cpe, config, instance=0)
+        spec, inst = _coupling_element(rng, config, point, [(1, 0, 3)])
+        enc.write_cce(w, spec, config, instance=inst)
+        out.append(enc.end_frame(w))
+    return out
+
+
+# element layouts of the multichannel configurations (ISO/IEC 14496-3
+# Table 1.19): 5.1 and 7.1
+MC_LAYOUTS = {
+    6: [("SCE", 0), ("CPE", 0), ("CPE", 1), ("LFE", 0)],
+    7: [("SCE", 0), ("CPE", 0), ("CPE", 1), ("CPE", 2), ("LFE", 0)],
+}
+
+
+def multichannel_payloads(chan_config: int, n_frames: int, seed: int,
+                          coupling: bool = False) -> list[bytes]:
+    """AAC-LC 48 kHz frames of channel configuration 6 (5.1) or 7 (7.1),
+    long windows.  With `coupling` the first CPE carries TNS on both
+    channels and each frame ends with two coupling elements: a dependent
+    AFTER_TNS one onto that CPE (a device entry per target, since the
+    targets carry TNS) and an independent AFTER_IMDCT one onto the centre
+    channel (coupled in the time domain through its own slot)."""
+    rng = np.random.default_rng(seed)
+    cfg = parse_asc(make_asc(2, 3, chan_config))
+    out = []
+    for _ in range(n_frames):
+        w = BitWriter()
+        for kind, inst in MC_LAYOUTS[chan_config]:
+            if kind != "CPE":
+                s = random_channel_spec(rng, cfg, window_sequence=0,
+                                        allow_pulse=False, allow_noise=False)
+                enc.write_sce(w, s, cfg, instance=inst, lfe=kind == "LFE")
+            elif coupling and inst == 0:
+                enc.write_cpe(w, _tns_cpe(rng, cfg), cfg, instance=inst)
+            else:
+                left = random_channel_spec(rng, cfg, window_sequence=0,
+                                           allow_pulse=False,
+                                           allow_noise=False)
+                right = random_channel_spec(
+                    rng, cfg, window_sequence=0, max_sfb=left.max_sfb,
+                    window_shape=left.window_shape, allow_pulse=False,
+                    allow_noise=False)
+                enc.write_cpe(w, enc.CPESpec(left=left, right=right,
+                                             common_window=True, ms_type=0),
+                              cfg, instance=inst)
+        if coupling:
+            for i, (point, targets) in enumerate(((1, [(1, 0, 3)]),
+                                                  (2, [(0, 0, 0)]))):
+                spec, _ = _coupling_element(rng, cfg, point, targets)
+                enc.write_cce(w, spec, cfg, instance=i)
+        out.append(enc.end_frame(w))
+    return out
+
+
+def multichannel_config(chan_config: int) -> StreamConfig:
+    return parse_asc(make_asc(2, 3, chan_config))
+
+
+def er_config(profile: int, frame_length: int, channels: int = 1
+              ) -> StreamConfig:
+    """ER AAC-LC (17), AAC-LD (23) or AAC-ELD (39) at 44.1 kHz."""
+    return parse_asc(make_asc(profile, 4, channels,
+                              frame_length=frame_length))
+
+
+def er_payloads(cfg: StreamConfig, n_frames: int, seed: int) -> list[bytes]:
+    """raw_data_blocks of an ER-LC, LD or ELD stream (long windows, no PNS,
+    no pulse data): SCE frames for a mono config, common-window CPE frames
+    with M/S and intensity for a stereo one."""
+    rng = np.random.default_rng(seed)
+    write = enc.write_eld_frame if cfg.profile == 39 else enc.write_er_frame
+    kw = dict(window_sequence=0, allow_pulse=False, allow_noise=False)
+    out = []
+    for _ in range(n_frames):
+        if cfg.channels == 1:
+            out.append(write([("SCE", random_channel_spec(rng, cfg, **kw))],
+                             cfg))
+            continue
+        left = random_channel_spec(rng, cfg, **kw)
+        right = random_channel_spec(rng, cfg, max_sfb=left.max_sfb,
+                                    window_shape=left.window_shape,
+                                    allow_intensity=True, **kw)
+        ms_type = int(rng.integers(0, 3))
+        ms_used = ((rng.random(left.max_sfb) < 0.5).astype(np.int64)
+                   if ms_type == 1 else None)
+        out.append(write([("CPE", enc.CPESpec(
+            left=left, right=right, common_window=True, ms_type=ms_type,
+            ms_used=ms_used))], cfg))
+    return out
+
+
+def ltp_adts(n_frames: int, seed: int, channels: int = 1, tns: bool = False,
+             short_frames=()) -> bytes:
+    """An AAC-LTP 44.1 kHz ADTS stream: long frames carry ltp_data (lag,
+    coefficient, per-band bits) from the second frame on; `short_frames`
+    are EIGHT_SHORT, entered and left through LONG_START / LONG_STOP; with
+    `tns` the long frames carry TNS.  Stereo frames are common-window CPEs
+    with M/S whose right channel opts out of LTP on some frames."""
+    rng = np.random.default_rng(seed)
+    cfg = parse_asc(make_asc(4, 4, channels))
+    out = []
+    for f in range(n_frames):
+        short = f in short_frames
+        seq = (2 if short else 1 if f + 1 in short_frames
+               else 3 if f - 1 in short_frames else 0)
+        chs = []
+        for _ in range(channels):
+            s = random_channel_spec(
+                rng, cfg, window_sequence=seq, allow_tns=False,
+                force_tns=tns and not short, allow_noise=False,
+                allow_pulse=False,
+                **(dict(grouping=chs[0].grouping, max_sfb=chs[0].max_sfb)
+                   if chs else {} if short else dict(max_sfb=42)))
+            if f >= 1 and not short:
+                s.ltp_lag = int(rng.integers(64, 2048))
+                s.ltp_coef_idx = int(rng.integers(8))
+                s.ltp_used = rng.integers(0, 2, 40) > 0
+            chs.append(s)
+        w = BitWriter()
+        if channels == 1:
+            enc.write_sce(w, chs[0], cfg, instance=0)
+        else:
+            chs[1].window_shape = chs[0].window_shape
+            if f >= 1 and f % 2 == 0:
+                chs[1].ltp_lag = None
+            enc.write_cpe(w, enc.CPESpec(
+                left=chs[0], right=chs[1], common_window=True, ms_type=1,
+                ms_used=rng.integers(0, 2, 128).astype(bool)), cfg,
+                instance=0)
+        out.append(enc.adts_frame(enc.end_frame(w), cfg))
+    return b"".join(out)
+
+
+def multi_rdb_adts(n_blocks: int = 9, crc: bool = False, seed: int = 0
+                   ) -> bytes:
+    """An AAC-LC stereo ADTS stream whose frames carry three
+    raw_data_blocks each (encoded tones), with the per-block crc_check
+    layout when `crc`."""
+    cfg = lc_stereo_config()
+    payloads = enc.encode_pcm_frames(tone_pcm(FRAME * n_blocks, seed), cfg,
+                                     target_sf=140)[:n_blocks]
+    return b"".join(enc.adts_frame_multi(payloads[i:i + 3], cfg, crc=crc)
+                    for i in range(0, len(payloads), 3))

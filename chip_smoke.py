@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's AAC-LC serving path once on one CUDA GPU.
+"""Drive the port's serving paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      TNS runs at 256, 4096 and 16384 rows of whole-spectrum order-2/12/20
      filters in both directions, and at 16384 rows (the serving chunk) of
      a serving-like mix read from compact int16 spectra and the parser's
-     packed filter planes;
+     packed filter planes.  The Main-profile predictor runs at C = 1024,
+     T = 16 (the serving chunk) and C = 8, T = 64 on inputs with every
+     mode and reset, and must equal its plain version bit for bit;
   3. the serving slice at full width: 512 concurrent AAC-LC stereo streams
      (44.1 kHz, ~200 kbps; the reference's headline corpus),
      chunk_frames=16, through BatchDecoder.decode_pipelined, five runs --
@@ -30,11 +32,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      (LC-512-tns: random legal frames with M/S, short windows and TNS, f32
      PCM delivered because its synthetic audio is far outside the int16
      range), two runs -- TNS and tail launches, every chunk against the
-     plain route, stage split;
+     plain route, stage split; then Main-512, 512 Main-profile stereo
+     streams (C = 1024 slots) of random legal frames with prediction, reset
+     groups, short windows, M/S and TNS, 3 chunks, two runs, f32 PCM -- per
+     chunk one predictor, one synthesis (B = 16384) and one TNS launch and
+     no tail launch, every chunk against the plain route; then MC-128-cce,
+     128 5.1 streams with two coupling slots each (C = 1024) whose frames
+     carry a dependent AFTER_TNS coupling element onto TNS'd targets and an
+     independent one, 2 chunks, against the plain route;
   4. decode_adts on a stream with short windows and TNS (synthesis and TNS
      kernels) and on a mono stream in chunks of 5 frames (synthesis at
      C*T = 15), each against the plain route on the CPU, and the round-trip
-     SNR of an encoded tone.
+     SNR of an encoded tone; then the other routes, each against the same
+     call on the CPU: Main with intensity stereo (delegated to the python
+     parser and packer, decode_step on the card), ELD-512 and LD-480 through
+     decode_loas, 960-sample frames through AACDecoder, frames of three
+     raw_data_blocks, and AAC-LTP.
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
@@ -55,6 +68,7 @@ N_STREAMS = 512
 CHUNK = 16
 WINDOWS = 5        # pipelined runs over the whole corpus; median reported
 TNS_WINDOWS = 2    # pipelined runs of the LC-512-tns pass
+MAIN_WINDOWS = 2   # pipelined runs of the Main-512 pass
 TIMING_RUNS = 20
 REPS = 10          # back-to-back calls per timed run of a kernel
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes/s
@@ -185,9 +199,12 @@ def ptxas_lines(log: str) -> list[str]:
             spill = line.strip()
         elif "Used" in line and name:
             k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
-            t = re.search(r"(tns_(?:filter|prepare)_kernel)ILb(\d)E", name)
+            t = re.search(r"(tns_(?:filter|prepare)_kernel)ILi(\d+)ELb(\d)E",
+                          name)
             kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
-                    else f"{t[1]}<spec_i16={t[2]}>" if t else name)
+                    else f"{t[1]}<F={t[2] if t[2] != '0' else 'any'}, "
+                         f"spec_i16={t[3]}>" if t
+                    else "pred_kernel" if "pred_kernel" in name else name)
             out.append(f"ptxas {kind}: {line.split(':', 1)[1].strip()}; "
                        f"{spill}")
             name, spill = None, ""
@@ -259,7 +276,7 @@ def phase_kernels(torch, dev) -> dict:
                       f"{'int16' if out16 else 'f32'}", 8, 4, i16, out16,
                       True, True, 3000.0)
 
-    for B, key in ((256, "synthesis"), (16384, "synthesis_16384")):
+    for B, key in ((256, "synthesis_256"), (16384, "synthesis")):
         np_args = TI.random_synth_batch(4, B)
         args = on_dev(np_args)
         first, second = synth.synthesis(*args)
@@ -297,6 +314,7 @@ def phase_kernels(torch, dev) -> dict:
     results["_matmul_ms"] = mm
 
     phase_tns_kernel(torch, dev, results)
+    phase_pred_kernel(torch, dev, results)
     return results
 
 
@@ -359,6 +377,73 @@ def phase_tns_kernel(torch, dev, results: dict) -> None:
              True, key="tns")
 
 
+def pred_chunk(seed: int, C: int, T: int) -> list[np.ndarray]:
+    """Predictor inputs with every mode (0 none, 1 long, 2 short; long the
+    most frequent), reset groups on a third of the frames, nbins at and
+    below 672 and `used` set in runs of 16 bins on half of them: (spec,
+    mode, reset, nbins, used)."""
+    rng = np.random.default_rng(seed)
+    spec = rng.standard_normal((C, T, 1024), dtype=np.float32) * 300
+    mode = rng.choice([0, 1, 1, 1, 1, 2], size=(C, T)).astype(np.int32)
+    reset = np.where(rng.random((C, T)) < 0.33,
+                     rng.integers(1, 31, (C, T)), 0).astype(np.int32)
+    nbins = rng.choice([672, 672, 640, 512], size=(C, T)).astype(np.int32)
+    used = np.repeat(rng.random((C, T, 42)) < 0.5, 16, axis=-1).astype(np.uint8)
+    return [spec, mode, reset, nbins, used]
+
+
+def phase_pred_kernel(torch, dev, results: dict) -> None:
+    """The predictor kernel against its plain version, bit for bit, over
+    two chunks with the state carried; the case at the serving chunk's shape
+    is the one `results` keeps."""
+    from aacjax_torch.kernels import pred
+
+    def bits_equal(a, b):
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    for C, T, key in ((1024, CHUNK, "pred"), (8, 64, None)):
+        st_k = st_p = pred.pred_state_init(C, dev)
+        err = 0.0
+        for k in range(2):
+            args = [torch.from_numpy(a).to(dev) for a in pred_chunk(C + k, C, T)]
+            out, st_k = pred.apply_prediction(*args, st_k)
+            ref, st_p = pred.apply_prediction_ref(*args, st_p)
+            torch.cuda.synchronize()
+            err = max(err, float((out - ref).abs().max()),
+                      float((st_k - st_p).abs().max()))
+            check(bits_equal(out, ref) and bits_equal(st_k, st_p),
+                  f"pred C={C} T={T} chunk {k}: kernel and plain version "
+                  f"differ (max err {err})")
+            check(bool(torch.isfinite(out).all()), "pred: non-finite output")
+        spec, mode, reset, nbins, used = args
+        work = spec.clone()     # timed in place, as the main path calls it
+
+        def run():
+            return pred.apply_prediction(work, mode, reset, nbins, used, st_k,
+                                         inplace=True)
+
+        ms = time_ms(torch, run, reps=REPS)
+        dms = device_ms(torch, run, "pred_kernel")
+        plain = time_ms(torch, lambda: pred.apply_prediction_ref(*args, st_k),
+                        runs=5)
+        # bytes: the 672 predicted bins read and written, `used`, the three
+        # planes, the state in and out.  Operations: ~9 per (channel, frame,
+        # bin) for the prediction, ~23 more where the state moves
+        kk = torch.arange(672, device=dev)
+        n_upd = int(((mode == 1)[..., None] & (kk < nbins[..., None])).sum())
+        nb = (2 * C * T * 672 * 4 + nbytes(used, mode, reset, nbins)
+              + 2 * nbytes(st_k))
+        b_ms, b_by = bound(nb, 9.0 * C * T * 672 + 23.0 * n_upd)
+        if key:
+            results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None)
+        say(f"kernel pred C={C} T={T} every mode, resets: max err {err} on "
+            f"spectra and state (bit-equal); {ms:.4f} ms per call (device "
+            f"{fmt(dms)}), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {nb / 1e6:.1f} MB); no PyTorch call computes it")
+
+
 def parse_threads(n_streams: int) -> int:
     """The thread count the native batch parse resolves to for n_streams
     streams, by the rule of native/aacparse.cc (aacparse_batch):
@@ -398,32 +483,55 @@ def stage_split(torch, dec, chunk, out_int16: bool, runs: int = 5):
     return tuple(float(v) for v in np.median(np.array(splits), axis=0))
 
 
+KERNELS = ("tail", "synthesis", "tns", "pred")
+
+
+def reset_launches() -> None:
+    from aacjax_torch.kernels import pred, synth, tail, tns
+    tail.launches = synth.launches = tns.launches = pred.launches = 0
+
+
+def read_launches() -> dict:
+    from aacjax_torch.kernels import pred, synth, tail, tns
+    return dict(tail=tail.launches, synthesis=synth.launches,
+                tns=tns.launches, pred=pred.launches)
+
+
 def serving_pass(torch, name: str, config, corpus, windows: int,
-                 out_int16: bool, with_tns: bool) -> dict:
-    """`windows` pipelined runs of N_STREAMS streams (the corpus's streams
-    in turn) in chunks of CHUNK frames, each with a fresh decoder after one
-    warm-up chunk; then every chunk of every run against the plain route on
-    the same parsed batches, and one chunk's stage split.  Returns the
-    launch counts of the pipelined runs."""
+                 out_int16: bool, expect: dict, n_streams: int = N_STREAMS,
+                 cce_slots: int = 0, max_chunks: int | None = None,
+                 facts_set: tuple = (), quote_rtx: bool = False) -> dict:
+    """`windows` pipelined runs of n_streams streams (the corpus's payload
+    lists in turn) in chunks of CHUNK frames, each with a fresh decoder
+    after one warm-up chunk, the launch counts set to 0 just before the runs
+    and read just after; then every chunk of every run against the plain
+    route (use_pallas=False, a separate decoder on the same chunks, which
+    carries its own overlap and predictor state), and one chunk's stage
+    split.  `expect` gives the launches per chunk of each kernel ("tns": 1
+    stands for one launch per chunk that carries TNS); `facts_set` names
+    parse facts that every chunk must have set.  Returns the launch counts
+    of the pipelined runs."""
     import aacjax_torch
-    from aacjax_torch.kernels import pipeline as P
-    from aacjax_torch.kernels import synth, tail, tns
     from aacjax_torch.testing import assert_pcm_close
 
-    per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
+    per_stream = [corpus[i % len(corpus)] for i in range(n_streams)]
     n_chunks = min(len(p) for p in per_stream) // CHUNK
+    n_chunks = min(n_chunks, max_chunks or n_chunks)
     chunks = [[p[k * CHUNK:(k + 1) * CHUNK] for p in per_stream]
               for k in range(n_chunks)]
-    say(f"{name}: {N_STREAMS} streams x {n_chunks} chunks of {CHUNK} frames, "
-        f"{'int16' if out_int16 else 'f32'} PCM delivered, compact i16 H2D")
 
     def decoder():
-        return aacjax_torch.BatchDecoder([config] * N_STREAMS,
-                                         chunk_frames=CHUNK)
+        return aacjax_torch.BatchDecoder([config] * n_streams,
+                                         chunk_frames=CHUNK,
+                                         cce_slots=cce_slots)
 
+    say(f"{name}: {n_streams} streams "
+        f"({n_streams * (config.channels + cce_slots)} channel slots) x "
+        f"{n_chunks} chunks of {CHUNK} frames, "
+        f"{'int16' if out_int16 else 'f32'} PCM delivered")
     decoder().step_raw(chunks[0], out_int16=out_int16)      # warm-up chunk
     torch.cuda.synchronize()
-    tail.launches = synth.launches = tns.launches = 0
+    reset_launches()
     walls, runs = [], []
     for _ in range(windows):
         dec = decoder()
@@ -433,50 +541,50 @@ def serving_pass(torch, name: str, config, corpus, windows: int,
         walls.append(time.perf_counter() - t1)
         check(len(outs) == n_chunks, f"{name}: decode_pipelined lost chunks")
         check(not any(st.failed for st in dec.streams),
-              f"{name}: a stream failed")
+              f"{name}: a stream failed: "
+              f"{[st.last_error for st in dec.streams if st.failed][:1]}")
         runs.append(outs)
-    counts = dict(tail=tail.launches, synthesis=synth.launches,
-                  tns=tns.launches)
+    counts = read_launches()
     say(f"{name}: launches {counts} for {windows} x {n_chunks} chunks")
-    check(counts["tail"] >= windows * n_chunks,
-          f"{name}: the tail kernel did not run every chunk")
-    if with_tns:
-        check(counts["tns"] >= windows * n_chunks,
-              f"{name}: the TNS kernel did not run every chunk")
 
-    # every chunk of every stream of every run against the plain route on
-    # the same parsed batches (a separate decoder parses the same chunks)
+    # every chunk of every stream of every run against the plain route
     ver = decoder()
-    overlap = torch.zeros((ver.C, 1024), device="cuda")
-    worst, n_diff, n_all, ref_max = 0.0, 0, 0, 0.0
+    worst, n_diff, n_all, ref_max, n_tns, compact = 0.0, 0, 0, 0.0, 0, None
     for k, chunk in enumerate(chunks):
-        dev = ver._upload_batch(ver._parse_native(chunk, compact=True))
-        ver._h2d_done[0].synchronize()
-        facts = {key: dev.pop(key) for key in list(dev) if key[0] == "_"}
-        check(facts["_has_tns"] == with_tns,
-              f"{name}: chunk {k} has_tns is {facts['_has_tns']}")
-        flags = P.PipelineFlags(has_stereo=False, has_tns=facts["_has_tns"],
-                                out_int16=out_int16, spec_i16=True,
-                                has_short=facts["_has_short"])
-        ref, overlap = P.decode_spec_step(dev, overlap, flags)
-        ref = ref.cpu()
-        ref_max = max(ref_max, float(ref.abs().max()))
+        parsed = ver._parse_native(chunk, compact=True)
+        n_tns += bool(parsed["_has_tns"])
+        compact = parsed["_spec_i16"]
+        for fact in facts_set:
+            check(bool(parsed[fact]), f"{name}: chunk {k} has {fact} unset")
+        ref = ver.finalize_step(ver._device_step(
+            ver._upload_batch(parsed), out_int16, use_pallas=False)).copy()
+        ref_max = max(ref_max, float(np.abs(ref).max()))
         for w, outs in enumerate(runs):
             worst = max(worst, assert_pcm_close(outs[k], ref, out_int16,
                                                 f"{name} run {w} chunk {k}"))
-            n_diff += int((outs[k] != ref.numpy()).sum())
-            n_all += ref.numel()
+            n_diff += int((outs[k] != ref).sum())
+            n_all += ref.size
+    check(not any(st.failed for st in ver.streams), f"{name}: a stream failed "
+          "on the plain route")
+    for kernel in KERNELS:
+        per = n_tns if kernel == "tns" else n_chunks
+        want = windows * per * expect.get(kernel, 0)
+        check(counts[kernel] == want, f"{name}: {counts[kernel]} {kernel} "
+              f"launches, expected {want} ({windows} runs, {n_chunks} chunks, "
+              f"{n_tns} of them with TNS)")
     rule = ("within 1 LSB on < 2% of samples" if out_int16
             else "within 5e-5 * max|ref| of each chunk")
-    say(f"{name}: all {n_chunks} chunks of all {N_STREAMS} streams in all "
-        f"{windows} runs match the plain route {rule} (max delta {worst}, "
-        f"max|ref| {ref_max}, {n_diff / n_all:.6f} of samples differ)")
+    say(f"{name}: all {n_chunks} chunks ({n_tns} with TNS; "
+        f"{'compact i16' if compact else 'exact f32'} spectra uploaded) of "
+        f"all {n_streams} streams in all {windows} runs match the plain route "
+        f"{rule} (max delta {worst}, max|ref| {ref_max}, "
+        f"{n_diff / n_all:.6f} of samples differ)")
 
-    parse_s, h2d_s, comp_s, d2h_s = stage_split(torch, decoder(), chunks[1],
-                                                out_int16)
-    chunk_audio = N_STREAMS * CHUNK * 1024 / config.sample_rate
+    parse_s, h2d_s, comp_s, d2h_s = stage_split(
+        torch, decoder(), chunks[min(1, n_chunks - 1)], out_int16)
+    chunk_audio = n_streams * CHUNK * config.frame_length / config.sample_rate
     audio_s = chunk_audio * n_chunks
-    if not with_tns:
+    if quote_rtx:
         rtx = [audio_s / w for w in walls]
         say(f"{name}: aggregate_realtime_x {float(np.median(rtx)):.1f} "
             f"(median of {windows} runs of {audio_s:.1f} s of audio; runs "
@@ -502,7 +610,7 @@ def phase_slice(torch) -> dict:
         f"the native parse uses {parse_threads(N_STREAMS)} threads")
     return serving_pass(torch, "slice", config,
                         [adts_payloads(d) for d in streams], WINDOWS,
-                        out_int16=True, with_tns=False)
+                        out_int16=True, expect=dict(tail=1), quote_rtx=True)
 
 
 def phase_slice_tns(torch) -> dict:
@@ -519,22 +627,62 @@ def phase_slice_tns(torch) -> dict:
         f"frames written in {time.perf_counter() - t0:.1f} s")
     return serving_pass(torch, "slice-tns", config,
                         [adts_payloads(d) for d in streams], TNS_WINDOWS,
-                        out_int16=False, with_tns=True)
+                        out_int16=False, expect=dict(tail=1, tns=1),
+                        facts_set=("_has_tns",))
+
+
+def phase_slice_main(torch) -> dict:
+    """The Main-512 pass: 512 Main-profile stereo streams of random legal
+    frames (prediction_used bits, reset groups, runs of EIGHT_SHORT, M/S,
+    TNS on part of the frames, no intensity, which would be delegated).
+    Prediction keeps a chunk off the fused tail: per chunk the predictor
+    kernel, the TNS kernel, the synthesis kernel at B = C*T = 16384 and the
+    plain overlap-add.  Exact f32 spectra travel (the predictor is sensitive
+    to the last bit); f32 PCM for the reason given for LC-512-tns."""
+    from aacjax_torch.testing import main_serving_corpus
+    t0 = time.perf_counter()
+    config, corpus = main_serving_corpus(4, 48)
+    say(f"slice-main: corpus of {len(corpus)} unique Main-profile streams "
+        f"of random frames written in {time.perf_counter() - t0:.1f} s")
+    return serving_pass(torch, "slice-main", config, corpus, MAIN_WINDOWS,
+                        out_int16=False,
+                        expect=dict(pred=1, synthesis=1, tns=1),
+                        facts_set=("_has_pred",))
+
+
+def phase_slice_mc(torch) -> dict:
+    """The MC-128-cce pass: 128 5.1 streams with two coupling slots each
+    (C = 128 * 8 = 1024), every frame with a dependent AFTER_TNS coupling
+    element onto a CPE that carries TNS (device entries after the TNS
+    kernel) and an independent one (coupled on the PCM through its own
+    slot's filterbank).  The coupling lists keep a chunk off the fused
+    tail."""
+    from aacjax_torch.testing import (multichannel_config,
+                                      multichannel_payloads)
+    t0 = time.perf_counter()
+    corpus = [multichannel_payloads(6, 2 * CHUNK, seed=i, coupling=True)
+              for i in range(4)]
+    say(f"slice-mc: corpus of {len(corpus)} unique 5.1 streams with coupling "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    return serving_pass(torch, "slice-mc", multichannel_config(6), corpus, 1,
+                        out_int16=False, expect=dict(synthesis=1, tns=1),
+                        n_streams=128, cce_slots=2,
+                        facts_set=("_has_tns", "_has_cce_post",
+                                   "_has_cce_time"))
 
 
 # -- phase 4: decode_adts ----------------------------------------------------
 def phase_decode_adts(torch) -> dict:
     import aacjax_torch
-    from aacjax_torch.kernels import synth, tail, tns
+    from aacjax_torch.kernels import synth
     from aacjax_torch.testing import (assert_pcm_close, encode_adts,
                                       tns_short_adts, tone_pcm)
 
     data = tns_short_adts(12, seed=0)
-    tail.launches = synth.launches = tns.launches = 0
+    reset_launches()
     out, rate = aacjax_torch.decode_adts(data)
-    counts = dict(synthesis=synth.launches, tns=tns.launches)
-    say(f"decode_adts: TNS + short-window stream, launches {counts} "
-        f"(tail {tail.launches})")
+    counts = read_launches()
+    say(f"decode_adts: TNS + short-window stream, launches {counts}")
     check(counts["synthesis"] > 0 and counts["tns"] > 0,
           "decode_adts did not run the synthesis and TNS kernels")
     ref, _ = aacjax_torch.decode_adts(data, device="cpu")
@@ -553,7 +701,6 @@ def phase_decode_adts(torch) -> dict:
     say(f"decode_adts: mono in chunks of 5 frames (C*T = 15), synthesis "
         f"launches {synth.launches - before}, matches the plain route on the "
         f"CPU (max err {err})")
-    counts["synthesis"] = synth.launches
 
     pcm = tone_pcm(n)
     dec, _ = aacjax_torch.decode_adts(encode_adts(pcm, target_sf=120))
@@ -563,7 +710,74 @@ def phase_decode_adts(torch) -> dict:
     snr = 10 * np.log10(np.sum(pcm[lo:hi] ** 2) / np.sum(err ** 2))
     say(f"decode_adts: round-trip SNR {snr:.2f} dB")
     check(bool(np.isfinite(dec).all()) and snr > 60.0, "round-trip SNR <= 60 dB")
-    return counts
+    phase_routes()
+    return read_launches()
+
+
+def phase_routes() -> None:
+    """The routes beyond LC, small: each call on the card against the same
+    call on the CPU (f32 PCM within 5e-5 * max|ref|; LTP, which runs on the
+    host either way, exactly)."""
+    import aacjax_torch
+    from aacjax_torch import testing as TI
+    from aacjax_torch.host.asc import make_asc
+    from aacjax_torch.kernels import pred, synth, tns
+
+    def both(what, fn, *args, **kw):
+        got, rate = fn(*args, **kw)
+        want, want_rate = fn(*args, device="cpu", **kw)
+        check(rate == want_rate and got.shape == want.shape,
+              f"{what}: {got.shape} at {rate} Hz against {want.shape} at "
+              f"{want_rate} Hz on the CPU")
+        err = TI.assert_pcm_close(got, want, False, what)
+        say(f"routes: {what}: {got.shape} at {rate} Hz matches the CPU route "
+            f"(max err {err}, max|ref| {float(np.abs(want).max()):.4g})")
+        return got, want
+
+    before = (pred.launches, tns.launches, synth.launches)
+    both("Main + intensity (delegated to the python packer)",
+         aacjax_torch.decode_adts, TI.main_stereo_adts(12, 3, intensity=True),
+         chunk_frames=8)
+    check(pred.launches > before[0] and tns.launches > before[1]
+          and synth.launches > before[2],
+          "decode_step on the card did not launch the predictor, TNS and "
+          "synthesis kernels")
+    both("Main, chunks of 5 frames", aacjax_torch.decode_adts,
+         TI.main_stereo_adts(12, 1), chunk_frames=5)
+    for profile, frame_length, label in ((39, 512, "ELD-512"),
+                                         (23, 480, "LD-480")):
+        cfg = TI.er_config(profile, frame_length, 2)
+        loas = TI.enc.loas_stream(TI.er_payloads(cfg, 9, seed=frame_length),
+                                  cfg)
+        both(f"{label} through decode_loas", aacjax_torch.decode_loas, loas,
+             chunk_frames=4)
+    both("three raw_data_blocks per ADTS frame, with crc_check",
+         aacjax_torch.decode_adts, TI.multi_rdb_adts(9, crc=True))
+    both("5.1 with coupling", aacjax_torch.decode_adts,
+         b"".join(TI.enc.adts_frame(p, TI.multichannel_config(6)) for p in
+                  TI.multichannel_payloads(6, 6, 9, coupling=True)))
+
+    def stream_960(device="cuda"):
+        cfg = TI.er_config(2, 960, 2)
+        t = np.arange(960 * 6) / 44100
+        x = 8000 * np.sin(2 * np.pi * 700 * t)
+        payloads = TI.enc.encode_pcm_frames(
+            np.stack([x, 0.7 * np.roll(x, 31)], axis=1), cfg, target_sf=120)
+        dec = aacjax_torch.AACDecoder(
+            cookie=make_asc(2, 4, 2, frame_length=960), device=device)
+        dec.feed(b"".join(payloads))
+        chunks = []
+        while (c := dec.read_chunk()) is not None:
+            chunks.append(c.reshape(-1, 2))
+        return np.concatenate(chunks), dec.output_sample_rate
+
+    both("960-sample frames through AACDecoder", stream_960)
+    ltp = TI.ltp_adts(8, seed=5, tns=True)
+    got, _ = aacjax_torch.decode_adts(ltp)
+    want, _ = aacjax_torch.decode_adts(ltp, device="cpu")
+    check(bool(np.array_equal(got, want)) and float(np.abs(got).max()) > 0,
+          "LTP: the two calls differ")
+    say(f"routes: AAC-LTP (the host's float64 decoder): {got.shape} equal")
 
 
 def main() -> None:
@@ -604,18 +818,23 @@ def main() -> None:
 
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)
-    results["tail"]["launches"] = phase_slice(torch)["tail"]
-    served = phase_slice_tns(torch)
-    results["tail"]["launches"] += served["tail"]
-    counts = phase_decode_adts(torch)
-    results["synthesis"]["launches"] = counts["synthesis"]
-    results["tns"]["launches"] = served["tns"] + counts["tns"]
+    # the launches of every main path, each counted from 0 over its own run
+    launches = dict.fromkeys(KERNELS, 0)
+    for phase in (phase_slice, phase_slice_tns, phase_slice_main,
+                  phase_slice_mc, phase_decode_adts):
+        for kernel, n in phase(torch).items():
+            launches[kernel] += n
+    for kernel in KERNELS:
+        check(launches[kernel] > 0, f"the {kernel} kernel was never launched "
+              "on a main path")
+        results[kernel]["launches"] = launches[kernel]
 
     src = "aacjax_torch/kernels/csrc/"
     meta = {"tail": (src + "filterbank.cu", "aacjax/kernels/pallas_tail.py:190"),
             "synthesis": (src + "filterbank.cu",
                           "aacjax/kernels/pallas_synth.py:112"),
-            "tns": (src + "tns.cu", "aacjax/kernels/pipeline.py:334")}
+            "tns": (src + "tns.cu", "aacjax/kernels/pipeline.py:334"),
+            "pred": (src + "pred.cu", "aacjax/kernels/pipeline.py:219")}
     keys = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=k, route="cuda", source=meta[k][0],

@@ -14,7 +14,8 @@ within 1 LSB with fewer than 2% of samples differing, f32 PCM within
 by FFT, the plain versions by the reference's dense product.  TNS is held
 to 1e-6 * max|x|: the float-float form exists for that accuracy (the kernel
 keeps the plain version's roundings, so the two are in fact equal up to the
-sign of a zero).  This file imports no JAX.
+sign of a zero).  The predictor kernel is held to its plain version bit for
+bit.  This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ import torch
 
 import aacjax_torch
 from aacjax_torch import testing as TI
-from aacjax_torch.kernels import synth, tail, tns
+from aacjax_torch.kernels import pred, synth, tail, tns
 
 pytestmark = pytest.mark.cuda
 
@@ -291,7 +292,7 @@ def test_tns_wrappers_refuse_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="fwd_start: not contiguous"):
         tns.tns(x, planes[0], rng[:, :, 0, :, 0], planes[2], *planes)
     with pytest.raises(ValueError, match="spec: shape"):
-        tns.tns(x[..., :512].contiguous(), *planes, *planes)
+        tns.tns(x[..., :500].contiguous(), *planes, *planes)
     with pytest.raises(TypeError, match="spec"):
         tns.tns(x.double(), *planes, *planes)
 
@@ -341,3 +342,232 @@ def test_decode_pipelined_on_card_tns_corpus_matches_cpu(dev):
     want = list(ref.decode_pipelined(iter(chunks), out_int16=False))
     for g, w in zip(got, want, strict=True):
         TI.assert_pcm_close(g, w, False)
+
+
+@pytest.mark.parametrize("F", [960, 512, 480])
+@pytest.mark.parametrize("compact", [False, True])
+def test_tns_kernel_other_frame_lengths(dev, F, compact):
+    """Frames of 960, 512 and 480 bins: filters in both directions whose
+    ranges end at the last bin, reverse ranges in coordinates flipped about
+    F, from f32 and from compact spectra (F / 16 scales a row)."""
+    rng = np.random.default_rng(F)
+    C, T = 3, 4
+    x = (rng.standard_normal((C, T, F)) * 1000).astype(np.float32)
+    lpc = np.zeros((C, T, 2, 8, 20), np.float32)
+    rngs = np.zeros((C, T, 2, 8, 2), np.int32)
+    for c in range(C):
+        for t in range(T):
+            cut = int(rng.integers(40, F - 40))
+            for d, (lo, hi, order) in enumerate(((0, cut, 7), (cut, F, 12))):
+                lpc[c, t, d, 0, :order] = TI._lpc_from_reflection(
+                    rng.uniform(-0.8, 0.8, order))
+                rngs[c, t, d, 0] = (F - hi, F - lo) if d else (lo, hi)
+    if compact:
+        blocks = x.reshape(C, T, F // 16, 16)
+        sc = np.maximum(np.abs(blocks).max(-1) / 32767.0,
+                        1e-30).astype(np.float32)
+        q = np.clip(np.round(blocks / sc[..., None]), -32768,
+                    32767).astype(np.int16).reshape(C, T, F)
+        args = _on(dev, (q, sc, lpc, rngs))
+    else:
+        args = _on(dev, (x, None, lpc, rngs))
+    out, ref = tns.tns_packed(*args), tns.tns_packed_ref(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (C, T, F) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert float((out - torch.from_numpy(x).to(dev)).abs().max()) > 1.0
+
+
+# -- the Main-profile predictor ---------------------------------------------------
+def _pred_chunk(seed, C, T, F=1024):
+    rng = np.random.default_rng(seed)
+    spec = (rng.standard_normal((C, T, F)) * 300).astype(np.float32)
+    mode = rng.choice([0, 1, 1, 1, 1, 2], size=(C, T)).astype(np.int32)
+    reset = np.where(rng.random((C, T)) < 0.33,
+                     rng.integers(1, 31, (C, T)), 0).astype(np.int32)
+    nbins = rng.choice([672, 672, 640, 100], size=(C, T)).astype(np.int32)
+    used = np.repeat(rng.random((C, T, 42)) < 0.5, 16,
+                     axis=-1).astype(np.uint8)
+    return spec, mode, reset, nbins, used
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("C,T,F", [(1024, 16, 1024), (8, 64, 1024),
+                                   (3, 5, 1024), (2, 7, 960), (1, 1, 672)])
+def test_pred_kernel_equals_plain_bit_for_bit(dev, C, T, F):
+    """Three chunks with the state carried, every mode, reset groups, nbins
+    below 672; also a frame length of 960 and of exactly the 672 bins."""
+    st_k = st_p = pred.pred_state_init(C, dev)
+    for k in range(3):
+        args = _on(dev, _pred_chunk(C + k, C, T, F))
+        keep = args[0].clone()
+        before = pred.launches
+        out, st_k = pred.apply_prediction(*args, st_k)
+        assert pred.launches == before + 1
+        assert torch.equal(args[0], keep)          # not in place by default
+        ref, st_p = pred.apply_prediction_ref(*args, st_p)
+        torch.cuda.synchronize()
+        assert _bits_equal(out, ref) and _bits_equal(st_k, st_p)
+    assert bool(torch.isfinite(out).all())
+    assert not torch.equal(st_k, pred.pred_state_init(C, dev))
+
+
+def test_pred_kernel_in_place_touches_only_the_predicted_bins(dev):
+    args = _on(dev, _pred_chunk(4, 6, 9))
+    state = pred.pred_state_init(6, dev)
+    state_keep = state.clone()
+    ref, _ = pred.apply_prediction_ref(*args, state)
+    above = args[0][..., 672:].clone()
+    out, _ = pred.apply_prediction(*args, state, inplace=True)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == args[0].data_ptr()
+    assert _bits_equal(out, ref) and torch.equal(out[..., 672:], above)
+    assert torch.equal(state, state_keep)
+
+
+def test_pred_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    spec, mode, reset, nbins, used = _on(dev, _pred_chunk(1, 2, 3))
+    state = pred.pred_state_init(2, dev)
+    with pytest.raises(TypeError, match="used"):
+        pred.apply_prediction(spec, mode, reset, nbins, used.float(), state)
+    with pytest.raises(TypeError, match="mode"):
+        pred.apply_prediction(spec, mode.long(), reset, nbins, used, state)
+    with pytest.raises(ValueError, match="spec: shape"):
+        pred.apply_prediction(spec[..., :512].contiguous(), mode, reset,
+                              nbins, used, state)
+    with pytest.raises(ValueError, match="state: shape"):
+        pred.apply_prediction(spec, mode, reset, nbins, used, state[:1])
+    with pytest.raises(ValueError, match="on cpu"):
+        pred.apply_prediction(spec, mode, reset.cpu(), nbins, used, state)
+    with pytest.raises(ValueError, match="not contiguous"):
+        pred.apply_prediction(spec.transpose(0, 1).contiguous().transpose(0, 1),
+                              mode, reset, nbins, used, state)
+
+
+# -- the routes beyond LC -----------------------------------------------------------
+def _chunked(per_stream, T):
+    n = min(len(p) for p in per_stream) // T
+    return [[p[k * T:(k + 1) * T] for p in per_stream] for k in range(n)]
+
+
+def test_main_pipelined_on_card_runs_pred_tns_synthesis(dev):
+    """Main-profile chunks: one predictor and one synthesis launch a chunk,
+    a TNS launch where the chunk carries TNS, no tail launch; PCM and the
+    carried states against the CPU route."""
+    cfg, corpus = TI.main_serving_corpus(4, 12)
+    chunks = _chunked([corpus[i % 4] for i in range(8)], 4)
+    p0, s0, t0, n0 = (pred.launches, synth.launches, tail.launches,
+                      tns.launches)
+    dec = aacjax_torch.BatchDecoder([cfg] * 8, chunk_frames=4, device=dev)
+    got = list(dec.decode_pipelined(iter(chunks), out_int16=False))
+    assert pred.launches == p0 + 3 and synth.launches == s0 + 3
+    assert tail.launches == t0 and tns.launches > n0
+    ref = aacjax_torch.BatchDecoder([cfg] * 8, chunk_frames=4, device="cpu")
+    want = list(ref.decode_pipelined(iter(chunks), out_int16=False))
+    for g, w in zip(got, want, strict=True):
+        TI.assert_pcm_close(g, w, False)
+    a, b = dec.save_state(), ref.save_state()
+    # TNS follows prediction, so the predictor sees the parser's exact
+    # spectra on both devices
+    assert np.array_equal(a["pred_state"].view(np.uint32),
+                          b["pred_state"].view(np.uint32))
+    TI.assert_pcm_close(a["overlap"] / 32768, b["overlap"] / 32768, False)
+
+
+def test_main_kernel_route_equals_plain_route_on_card(dev):
+    cfg, corpus = TI.main_serving_corpus(2, 8)
+    a = aacjax_torch.BatchDecoder([cfg] * 2, chunk_frames=4, device=dev)
+    b = aacjax_torch.BatchDecoder([cfg] * 2, chunk_frames=4, device=dev)
+    for chunk in _chunked(corpus, 4):
+        TI.assert_pcm_close(a.step_raw(chunk, use_pallas=True),
+                            b.step_raw(chunk, use_pallas=False), False)
+    assert np.array_equal(a.save_state()["pred_state"],
+                          b.save_state()["pred_state"])
+
+
+@pytest.mark.parametrize("chan_config", [6, 7])
+def test_multichannel_coupling_on_card_matches_cpu(dev, chan_config):
+    cfg = TI.multichannel_config(chan_config)
+    per_stream = [TI.multichannel_payloads(chan_config, 4, s, coupling=True)
+                  for s in (1, 2, 3)]
+    chunks = _chunked(per_stream, 2)
+    s0, t0 = synth.launches, tail.launches
+    dec = aacjax_torch.BatchDecoder([cfg] * 3, chunk_frames=2, cce_slots=2,
+                                    device=dev)
+    parsed = dec._parse_native(chunks[0])
+    assert parsed["_has_cce_post"] and parsed["_has_cce_time"]
+    dec = aacjax_torch.BatchDecoder([cfg] * 3, chunk_frames=2, cce_slots=2,
+                                    device=dev)
+    got = list(dec.decode_pipelined(iter(chunks), out_int16=False))
+    assert synth.launches == s0 + 2 and tail.launches == t0
+    ref = aacjax_torch.BatchDecoder([cfg] * 3, chunk_frames=2, cce_slots=2,
+                                    device="cpu")
+    want = list(ref.decode_pipelined(iter(chunks), out_int16=False))
+    for g, w in zip(got, want, strict=True):
+        TI.assert_pcm_close(g, w, False)
+
+
+def test_delegated_main_stream_on_card_runs_decode_step_kernels(dev):
+    data = TI.main_stereo_adts(8, seed=3, intensity=True)
+    p0, s0, n0 = pred.launches, synth.launches, tns.launches
+    got, rate = aacjax_torch.decode_adts(data, chunk_frames=4, device=dev)
+    assert pred.launches > p0 and synth.launches > s0 and tns.launches > n0
+    want, _ = aacjax_torch.decode_adts(data, chunk_frames=4, device="cpu")
+    TI.assert_pcm_close(got, want, False)
+
+
+@pytest.mark.parametrize("profile,frame_length", [(17, 960), (23, 512),
+                                                  (23, 480), (39, 512),
+                                                  (39, 480)])
+def test_decode_loas_on_card_matches_cpu(dev, profile, frame_length):
+    cfg = TI.er_config(profile, frame_length, 2)
+    loas = TI.enc.loas_stream(TI.er_payloads(cfg, 7, seed=profile), cfg)
+    got, rate = aacjax_torch.decode_loas(loas, chunk_frames=3, device=dev)
+    want, want_rate = aacjax_torch.decode_loas(loas, chunk_frames=3,
+                                               device="cpu")
+    assert rate == want_rate and got.shape == (7 * frame_length, 2)
+    TI.assert_pcm_close(got, want, False)
+
+
+def test_streaming_decoder_on_card_matches_cpu(dev):
+    """Block by block (T = 1): the native streaming route and the python
+    parser, the predictor state advancing one frame a step."""
+    def drain(data, device):
+        dec = aacjax_torch.AACDecoder(device=device)
+        out = []
+        for i in range(0, len(data), 500):
+            dec.feed(data[i:i + 500])
+            while (c := dec.read_chunk()) is not None:
+                out.append(c)
+        return np.stack(out)
+
+    for data in (TI.main_stereo_adts(6, seed=0), TI.multi_rdb_adts(6, crc=True),
+                 TI.tns_short_adts(5, seed=1)):
+        TI.assert_pcm_close(drain(data, dev), drain(data, "cpu"), False)
+
+
+def test_reset_and_state_on_card(dev):
+    """request_reset inside decode_pipelined and save / restore of the
+    predictor state between a card decoder and a CPU decoder."""
+    cfg, corpus = TI.main_serving_corpus(3, 8)
+    a, b, c = corpus
+    dec = aacjax_torch.BatchDecoder([cfg, cfg], chunk_frames=2, device=dev)
+
+    def source():
+        for i in range(4):
+            if i == 2:
+                dec.request_reset(0)
+            yield [a[2 * i:2 * i + 2] if i < 2 else c[2 * i - 4:2 * i - 2],
+                   b[2 * i:2 * i + 2]]
+
+    got = [p.copy() for p in dec.decode_pipelined(source(), out_int16=False)]
+    fresh = aacjax_torch.BatchDecoder([cfg], chunk_frames=2, device=dev)
+    TI.assert_pcm_close(got[2][:2], fresh.step_raw([c[:2]]), False)
+    TI.assert_pcm_close(got[3][:2], fresh.step_raw([c[2:4]]), False)
+    cpu = aacjax_torch.BatchDecoder([cfg, cfg], chunk_frames=2, device="cpu")
+    cpu.restore_state(dec.save_state())
+    nxt = [c[4:6], b[6:8]]
+    TI.assert_pcm_close(dec.step_raw(nxt), cpu.step_raw(nxt), False)

@@ -20,7 +20,9 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "host/huffman.py", "host/huffman_books.npz", "host/syntax.py",
           "host/sbr.py", "host/sbr_tables.npz", "host/ps.py",
           "host/ps_tables.npz", "host/native.py", "host/aac_960_tables.npz",
-          "kernels/windows.py", "runtime/stats.py", "testing/encoder.py",
+          "host/latm.py", "host/ltp_batch.py", "host/refdec.py",
+          "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
+          "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
           "testing/sbr_encoder.py")
 
@@ -44,6 +46,20 @@ dec = out[1024:1024 + n] * 32768.0
 err = dec[2048:n - 2048] - pcm[2048:n - 2048]
 snr = 10 * np.log10(np.sum(pcm[2048:n - 2048] ** 2) / np.sum(err ** 2))
 assert rate == 44100 and snr > 60.0, snr
+# a Main-profile stream (prediction, TNS, short windows) and an ELD stream
+# through LOAS
+from aacjax_torch import testing as TI
+main, rate = aacjax_torch.decode_adts(TI.main_stereo_adts(6, seed=0),
+                                      chunk_frames=4, device="cpu")
+assert main.shape == (6 * 1024, 2) and np.isfinite(main).all()
+assert np.abs(main).max() > 0
+eld_cfg = TI.er_config(39, 512, 2)
+loas = TI.enc.loas_stream(TI.er_payloads(eld_cfg, 4, seed=1), eld_cfg)
+eld, rate = aacjax_torch.decode_loas(loas, device="cpu")
+assert eld.shape == (4 * 512, 2) and np.isfinite(eld).all()
+dec = aacjax_torch.AACDecoder(device="cpu")
+dec.feed(loas)
+assert dec.read_chunk().shape == (2 * 512,)
 loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
 assert loaded == [], loaded
 print("ok", round(snr, 1))
@@ -128,7 +144,7 @@ def test_make_corpus_matches_bench():
 def test_kernel_modules_import_without_toolchain():
     """Importing the kernel modules builds nothing and needs no triton."""
     code = ("import sys, aacjax_torch.kernels.tail, aacjax_torch.kernels.synth,"
-            " aacjax_torch.kernels.tns\n"
+            " aacjax_torch.kernels.tns, aacjax_torch.kernels.pred\n"
             "from aacjax_torch.kernels import _build\n"
             "assert _build.lib.cache_info().currsize == 0\n"
             "assert 'triton' not in sys.modules\n"

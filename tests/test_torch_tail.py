@@ -101,10 +101,37 @@ def test_supported_gate_matches_reference():
 
 
 def test_decode_spec_step_raises_for_unported_flags():
-    batch = {"meta": torch.zeros((C, T, 6), dtype=torch.int32),
-             "spec": torch.zeros((C, T, 1024))}
-    for name in ("has_pred", "has_cce_post", "has_cce_time", "spec_qsf",
-                 "eld"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.decode_spec_step(batch, torch.zeros((C, 1024)),
-                               P.PipelineFlags(**{name: True}))
+    """No flag of the step is left unported: each of the five that used to
+    raise NotImplementedError now decodes a chunk of zeros to silence (and
+    a missing batch entry is a KeyError, not a refusal)."""
+    from aacjax_torch.kernels import pred
+    meta = torch.zeros((C, T, 6), dtype=torch.int32)
+    meta[..., 5] = 1
+    extra = {
+        "has_pred": {"pred_meta": torch.ones((C, T, 3), dtype=torch.int32),
+                     "pred_used_u8": torch.ones((C, T, 672),
+                                                dtype=torch.uint8)},
+        "has_cce_post": {"cce_post_idx": torch.zeros((1, 3),
+                                                     dtype=torch.int32),
+                         "cce_post_gain": torch.ones((1, 1024))},
+        "has_cce_time": {"cce_time_idx": torch.zeros((1, 3),
+                                                     dtype=torch.int32),
+                         "cce_time_gain": torch.ones(1)},
+        "spec_qsf": {"spec_q": torch.zeros((C, T, 1024), dtype=torch.int16),
+                     "spec_sf": torch.zeros((C, T, 256), dtype=torch.uint8)},
+        "eld": {},
+    }
+    for name, more in extra.items():
+        F = 512 if name == "eld" else 1024
+        batch = {"meta": meta, "spec": torch.zeros((C, T, F)), **more}
+        overlap = torch.zeros((C, 3 * F if name == "eld" else F))
+        state = (pred.pred_state_init(C),) if name == "has_pred" else ()
+        out = P.decode_spec_step(batch, overlap,
+                                 P.PipelineFlags(**{name: True}), *state)
+        assert len(out) == (3 if name == "has_pred" else 2)
+        assert out[0].shape == (C, T, F) and not out[0].any()
+        assert out[1].shape == overlap.shape
+    with pytest.raises(KeyError):
+        P.decode_spec_step({"meta": meta, "spec": torch.zeros((C, T, 1024))},
+                           torch.zeros((C, 1024)),
+                           P.PipelineFlags(has_cce_time=True))
