@@ -1,14 +1,19 @@
-"""aacjax_torch — the non-SBR decoder of `aacjax`, in PyTorch for CUDA.
+"""aacjax_torch — the decoder of `aacjax` but for Parametric Stereo, in
+PyTorch for CUDA.
 
 AAC-LC, Main, LTP, ER-LC, LD and ELD streams, mono through 7.1 with coupling
-channels, through `decode_adts`, `decode_loas`, `BatchDecoder` and the
-streaming `AACDecoder`; HE-AAC (SBR, Parametric Stereo) is not ported yet.
+channels, and HE-AAC v1 (SBR), through `decode_adts`, `decode_loas`,
+`BatchDecoder` (with `step_he_raw` and `decode_he_pipelined` for HE-AAC)
+and the streaming `AACDecoder`; HE-AAC v2 (Parametric Stereo) is not ported
+yet.
 
 The device side runs hand-written CUDA kernels for Hopper (sm_90a): the
 fused decode tail, the synthesis filterbank, the TNS recurrence and the
-Main-profile predictor (`aacjax_torch.kernels`).  The host side (ADTS, ASC, the bitstream syntax,
-the ctypes binding to the native C++ parser, the constant tables) is the
-port's own copy of `aacjax`'s host modules (`aacjax_torch.host`,
+Main-profile predictor (`aacjax_torch.kernels`); the SBR program and its
+QMF banks are PyTorch, as the reference's are plain XLA.  The host side
+(ADTS, ASC, the bitstream syntax, the SBR parser and packer, the ctypes
+binding to the native C++ parser, the constant tables) is the port's own
+copy of `aacjax`'s host modules (`aacjax_torch.host`,
 `aacjax_torch.tables`): the port imports nothing of `aacjax` and no JAX.
 
 Every entry point takes an explicit `device`; the default is "cuda" and it

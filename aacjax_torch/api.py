@@ -1,12 +1,13 @@
 """Public API: `decode_adts`, `decode_loas`, the streaming `AACDecoder`.
 
-Counterpart of `aacjax/api.py` without its HE-AAC half: every stream the
-reference decodes without SBR decodes here, on `device` ("cuda" unless the
-caller passes "cpu") -- AAC-LC, Main, LTP, ER-LC, LD and ELD, 1024- and
-960-sample frames (512 and 480 for LD / ELD), mono through 7.1 with
-coupling channels, ADTS frames with one or several raw_data_blocks, and
-LOAS/LATM.  HE-AAC (SBR, Parametric Stereo) raises NotImplementedError
-naming the ROADMAP item that ports it.
+Counterpart of `aacjax/api.py` without its Parametric Stereo half: every
+stream the reference decodes without PS decodes here, on `device` ("cuda"
+unless the caller passes "cpu") -- AAC-LC, Main, LTP, ER-LC, LD and ELD,
+1024- and 960-sample frames (512 and 480 for LD / ELD), mono through 7.1
+with coupling channels, HE-AAC v1 (SBR, at twice the core rate), ADTS
+frames with one or several raw_data_blocks, and LOAS/LATM.  HE-AAC v2
+(Parametric Stereo) raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from aacjax_torch.host.asc import StreamConfig, UnsupportedError, parse_asc
 from aacjax_torch.host.bitio import (BitReader, BitstreamError,
                                      BitstreamUnderflow)
 from aacjax_torch.host.syntax import decode_frame
-from aacjax_torch.runtime.batch import (ELD_PROFILE, LTP_PROFILE,
+from aacjax_torch.runtime.batch import (ELD_PROFILE, HE_NEXT, LTP_PROFILE,
                                         MAIN_PROFILE, BatchDecoder)
 
 CODEC_IDS = ('mp4a', 'aac ')
@@ -50,9 +51,6 @@ CANONICAL_ORDER = {
          15, 16, 20, 21, 22, 23],
 }
 
-_HE_NOT_PORTED = ("HE-AAC {} is not ported yet (ROADMAP Queue 1 items 8 "
-                  "and 9)")
-
 
 def to_canonical_order(pcm: np.ndarray, chan_config: int) -> np.ndarray:
     """Reorder element-order channels to the canonical WAV/FFmpeg layout."""
@@ -73,8 +71,11 @@ class AACDecoder:
         pcm = dec.read_chunk()         # float32 [frame_length*channels],
                                        # interleaved, 1/32768 scale
 
-    The device step of every block runs on `device`.  A stream that turns
-    out to carry SBR raises NotImplementedError."""
+    The core step of every block runs on `device`; an HE-AAC stream (SBR
+    signalled in the ASC, or found on the first frame) gets its high band
+    on the host's float64 SBR path (host/sbr_decode.py), the reference's
+    streaming route, and read_chunk returns 2 * frame_length samples per
+    channel.  ps_data raises NotImplementedError."""
 
     floating_point = True
 
@@ -94,6 +95,7 @@ class AACDecoder:
         # parsed frame), True/False once known
         self._sbr_mode: bool | None = None
         self._sbr_ctx = None
+        self._sbr_procs: list = []
         self._refdec = None
         self._transport: str | None = None
         # protected multi-raw_data_block ADTS (13818-7 6.2): the parser
@@ -211,6 +213,7 @@ class AACDecoder:
         self._reader = None
         self._adts_state = {}
         self._sbr_ctx = None
+        self._sbr_procs = []
         self._refdec = None
         self._sbr_mode = (True if (self.config is not None
                                    and self.config.sbr) else None)
@@ -233,9 +236,6 @@ class AACDecoder:
             if self._buffer:
                 return None  # still waiting for a configuring ADTS header
             raise UnsupportedError("no configuration; call set_cookie or feed")
-        if self._sbr_mode:
-            raise NotImplementedError(_HE_NOT_PORTED.format(
-                "(the streaming SBR tail, AACDecoder._apply_sbr)"))
         if self._bitpos >= len(self._buffer) * 8:
             return None
         if self._bitpos // 8 >= 4096:
@@ -282,9 +282,6 @@ class AACDecoder:
             # implicit signalling resolves on the first decoded frame
             self._sbr_mode = any(
                 getattr(e, "sbr", None) is not None for e in frame.elements)
-            if self._sbr_mode:
-                raise NotImplementedError(_HE_NOT_PORTED.format(
-                    "(the streaming SBR tail, AACDecoder._apply_sbr)"))
         if self.config.profile == LTP_PROFILE:
             # AAC-LTP: the sequential time-feedback profile runs on the
             # host's float64 decoder (see decode_adts)
@@ -294,13 +291,48 @@ class AACDecoder:
             out = self._refdec.decode_frame(frame).astype(np.float32)
             return out.reshape(-1)
         pcm = self._runtime.step([[frame]])
-        return self._runtime.stream_pcm(pcm, 0, 1).reshape(-1)
+        out = self._runtime.stream_pcm(pcm, 0, 1)
+        if self._sbr_mode:
+            out = self._apply_sbr(frame, out)
+        return out.reshape(-1)
+
+    def _apply_sbr(self, frame, pcm: np.ndarray) -> np.ndarray:
+        """HE-AAC tail: upsample every core channel 2x, rebuilding the high
+        band for the elements that carried an SBR payload (float64, the
+        reference's per-channel path).  pcm [frame_length, channels]."""
+        from aacjax_torch.host import sbr as sbrmod
+        from aacjax_torch.host.sbr_decode import (SBRChannelProc,
+                                                  process_channel,
+                                                  process_passthrough)
+        from aacjax_torch.host.syntax import CPEData
+        outs = []
+        ch_idx = 0
+        for elem in frame.elements:
+            nch = 2 if isinstance(elem, CPEData) else 1
+            sf = getattr(elem, "sbr", None)
+            if getattr(sf, "ps", None) is not None:
+                raise NotImplementedError(
+                    f"{HE_NEXT}: the stream carries ps_data")
+            eq = sbrmod.dequant(sf) if sf is not None else None
+            for c in range(nch):
+                while len(self._sbr_procs) <= ch_idx:
+                    self._sbr_procs.append(SBRChannelProc())
+                proc = self._sbr_procs[ch_idx]
+                core = np.asarray(pcm[:, ch_idx], np.float64)
+                out = (process_channel(proc, core, sf, c, eq[c])
+                       if sf is not None else process_passthrough(proc, core))
+                outs.append(out.astype(np.float32))
+                ch_idx += 1
+        return np.stack(outs, axis=1)
 
     @property
     def output_sample_rate(self) -> int:
-        """PCM rate of read_chunk output."""
+        """PCM rate of read_chunk output (2x the core rate with SBR)."""
         if self.config is None:
             raise UnsupportedError("no configuration")
+        if self._sbr_mode:
+            return (self.config.output_sample_rate if self.config.sbr
+                    else 2 * self.config.sample_rate)
         return self.config.sample_rate
 
     @property
@@ -384,8 +416,9 @@ def _read_all_chunks(dec: AACDecoder, on_error: str, resync: bool):
             rest = adts.split_frames(bytes(dec._buffer),
                                      start=dec._bitpos // 8 + 1,
                                      resync_overruns=True)
-            chunks.append(np.zeros((config.frame_length, config.channels),
-                                   np.float32))
+            n = config.frame_length * dec.output_sample_rate \
+                // config.sample_rate       # 2x with SBR
+            chunks.append(np.zeros((n, dec.output_channels), np.float32))
             if not rest:
                 break
             dec._bitpos = rest[0][1] * 8
@@ -406,12 +439,10 @@ def _decode_raw_payloads(config: StreamConfig, asc_raw: bytes,
     """Route demuxed raw_data_block payloads (one access unit each):
     configurations that ADTS can express are re-framed onto decode_adts;
     the ER profiles run batched at their own frame length; everything else
-    (960-sample frames, a PCE in the ASC) decodes on the streaming decoder
-    with the embedded ASC as the cookie."""
-    if config.sbr:
-        raise NotImplementedError(_HE_NOT_PORTED.format(
-            "with explicit signalling"))
-    if (config.frame_length == FRAME and 1 <= config.chan_config <= 7
+    (960-sample frames, explicit SBR signalling, a PCE in the ASC) decodes on
+    the streaming decoder with the embedded ASC as the cookie."""
+    if (config.frame_length == FRAME and not config.sbr
+            and 1 <= config.chan_config <= 7
             and config.profile in (MAIN_PROFILE, LC_PROFILE, LTP_PROFILE)):
         stream = b"".join(adts.wrap_frame(p, config) for p in payloads)
         return decode_adts(stream, chunk_frames=chunk_frames,
@@ -431,6 +462,27 @@ def _decode_raw_payloads(config: StreamConfig, asc_raw: bytes,
     dec.feed(b"".join(payloads))
     chunks = _read_all_chunks(dec, on_error, resync=False)
     return np.concatenate(chunks, axis=0), dec.output_sample_rate
+
+
+def _decode_he(data: bytes, frames, config, chunk_frames: int,
+               cce_slots: int, on_error: str,
+               device) -> tuple[np.ndarray, int]:
+    """HE-AAC v1 with one raw_data_block a frame: BatchDecoder.step_he_raw
+    chunk by chunk (the core step on `device`, then the batched SBR program
+    on the device-resident core PCM), exact spectra and planes, f32 PCM at
+    twice the core rate."""
+    dec = BatchDecoder([config], chunk_frames=chunk_frames,
+                       cce_slots=cce_slots, device=device)
+    payloads = [data[s:e] for _, s, e in frames]
+    nch = config.channels
+    out = []
+    for i in range(0, len(payloads), chunk_frames):
+        group = payloads[i:i + chunk_frames]
+        pcm = dec.step_he_raw([group], compact=False)       # [C, T, 2F]
+        _check_stream(dec, on_error)
+        block = pcm[:nch, :len(group)]
+        out.append(np.ascontiguousarray(block.reshape(nch, -1).T))
+    return np.concatenate(out, axis=0), 2 * config.sample_rate
 
 
 def decode_loas(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
@@ -543,7 +595,11 @@ def decode_adts(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
     the native parser delegates, such as Main with intensity stereo, restarts
     on the python parser and packer); AAC-LTP on the host's float64 decoder;
     frames with several raw_data_blocks on the streaming decoder.  HE-AAC
-    raises NotImplementedError.
+    v1 (SBR, found by a probe of the first frame) decodes at twice the core
+    rate: through BatchDecoder.step_he_raw (the core on the card, then the
+    batched SBR program), or the streaming decoder for frames of several
+    raw_data_blocks.  HE-AAC v2 (Parametric Stereo) raises
+    NotImplementedError.
     """
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error: {on_error}")
@@ -567,10 +623,19 @@ def decode_adts(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
     if config.profile == LTP_PROFILE:
         return _decode_ltp(data, frames, config, on_error, drc_scale)
     has_sbr, has_ps = _probe_sbr_ps(data, frames, config)
+    if has_ps:
+        raise NotImplementedError(f"{HE_NEXT}: the stream carries ps_data")
+    multi_rdb = any(h.num_frames > 1 for h, _, _ in frames)
+    if has_sbr and not multi_rdb:
+        return _decode_he(data, frames, config, chunk_frames, cce_slots,
+                          on_error, device)
     if has_sbr:
-        raise NotImplementedError(_HE_NOT_PORTED.format(
-            "v2 (SBR + PS)" if has_ps else "v1 (SBR)"))
-    if any(h.num_frames > 1 for h, _, _ in frames):
+        dec = AACDecoder(cookie=adts.synthesize_cookie(header),
+                         cce_slots=max(cce_slots, 1), device=device)
+        dec.feed(data)
+        chunks = _read_all_chunks(dec, on_error, resync=True)
+        return np.concatenate(chunks, axis=0), dec.output_sample_rate
+    if multi_rdb:
         return _decode_multi_rdb(data, frames, header, config, cce_slots,
                                  on_error, drc_scale, verify_crc, device)
     dec = BatchDecoder([config], chunk_frames=chunk_frames,

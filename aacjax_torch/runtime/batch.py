@@ -1,13 +1,14 @@
 """Batched multi-stream AAC decode runtime on one device.
 
-Counterpart of `aacjax/runtime/batch.py` `BatchDecoder` without its SBR/PS
-half: AAC-LC, Main, LTP, ER-LC, LD and ELD streams at 1024, 960, 512 or 480
-samples a frame, with coupling channels.  It owns the per-stream decoder
-state (the per-channel overlap, [C, F] or [C, 3F] for ELD, and the
-Main-profile predictor state [C, 672, 6], both kept on the device between
-chunks, and the per-channel previous window shape used by the parsers) and
-drives host parse -> host-to-device copy -> device step -> int16 or f32 PCM
-back to the host.
+Counterpart of `aacjax/runtime/batch.py` `BatchDecoder` without its
+Parametric Stereo half: AAC-LC, Main, LTP, ER-LC, LD and ELD streams at
+1024, 960, 512 or 480 samples a frame, with coupling channels, and HE-AAC
+v1 (SBR).  It owns the per-stream decoder state (the per-channel overlap,
+[C, F] or [C, 3F] for ELD, the Main-profile predictor state [C, 672, 6] and
+the SBR filterbank FIFOs, all kept on the device between chunks, and the
+per-channel previous window shape and SBR sequential state used by the
+host) and drives host parse -> host-to-device copy -> device step -> int16
+or f32 PCM back to the host.
 
 Three parse routes, as in the reference: the native parser (one C call per
 chunk, then `decode_spec_step`); the python parser and packer
@@ -19,8 +20,18 @@ AAC-LTP streams only, the vectorised float64 engine on the host
 On CUDA the host buffers the native parser writes into are pinned, the
 copies to the device run on their own stream, the decode step on a
 compute stream and the copies back on a third, ordered by CUDA events.
-The overlap and the predictor state are read and written only on the
-compute stream, so consecutive chunks need no event between them.
+The overlap, the predictor state and the SBR state are read and written
+only on the compute stream, so consecutive chunks need no event between
+them.
+
+HE-AAC (`step_he_raw`, `decode_he_pipelined`): the native parser decodes
+the core and records where each frame's SBR extension sits; Python parses
+those ~30-byte extensions (cached by payload), the host packs the dense
+per-slot planes (host/sbr_pack.py), the core step runs on the card, and
+then one batched SBR program (kernels/sbr_batch.py) runs on the
+device-resident core PCM.  A slot whose SBR header changes mid-chunk
+replays that chunk on the float64 per-channel path (host/sbr_decode.py)
+and rejoins the batched path at the next chunk boundary.
 """
 from __future__ import annotations
 
@@ -33,11 +44,15 @@ import numpy as np
 import torch
 
 from aacjax_torch.host import native
+from aacjax_torch.host import sbr as sbrmod
+from aacjax_torch.host import sbr_decode as SD
+from aacjax_torch.host import sbr_pack as SP
 from aacjax_torch.host.asc import StreamConfig
 from aacjax_torch.host.bitio import BitReader
 from aacjax_torch.host.syntax import CPEData, Frame, SCEData, decode_frame
 from aacjax_torch.kernels import pipeline as P
 from aacjax_torch.kernels import pred
+from aacjax_torch.kernels import sbr_batch as SB
 from aacjax_torch.runtime.pack import pack_frames
 from aacjax_torch.runtime.stats import DecodeStats
 
@@ -61,6 +76,33 @@ def _h2d_fields(F: int) -> dict:
 
 _PRED_FIELDS = {"pred_meta": (torch.int32, (3,)),
                 "pred_used": (torch.uint8, (P.PRED_BINS,))}
+
+
+def _qsf_fields(F: int) -> dict:
+    """The exact-i16 q/sf spectra of the HE core (native ensure_qsf)."""
+    return {"spec_q": (torch.int16, (F,)),
+            "spec_sf": (torch.uint8, (F // 4,))}
+
+
+# sbr_pack.compact_dense's planes with leading [C, T]: name -> (dtype,
+# trailing dims)
+_SBR_COMPACT_FIELDS = {
+    "eq_l2": (torch.int16, (2, SB.MAX_ENV, SB.BANDS)),
+    "eq_off": (torch.float32, (2,)),
+    "sbits": (torch.int8, (SB.MAX_ENV, SB.BANDS)),
+    "dtbits": (torch.int8, (SB.MAX_ENV,)),
+    "covered": (torch.int8, (SB.YSLOTS,)),
+    "has_sbr": (torch.int8, ()),
+    "env_id": (torch.int8, (SB.YSLOTS,)),
+    "sine_idx": (torch.int8, (SB.YSLOTS,)),
+    "noise_base": (torch.int16, (SB.YSLOTS,)),
+    "bw": (torch.float32, (SB.BANDS,)),
+    "i_temp": (torch.int32, ()),
+}
+# the per-slot device state a sticky slot's float64 replay inherits
+_SEED_KEYS = ("x_hist", "v_hist", "xlow_r", "xlow_i", "ytail_r", "ytail_i")
+HE_NEXT = ("HE-AAC v2 (Parametric Stereo) is not ported yet (ROADMAP "
+           "Queue 1 item 9)")
 
 
 @dataclass
@@ -161,6 +203,16 @@ class BatchDecoder:
         self._buffers = ([self._alloc_buffer(), self._alloc_buffer()]
                          if self.use_native else None)
         self._h2d_done: list[torch.cuda.Event | None] = [None, None]
+        # HE-AAC: the pinned q/sf spectra and SBR-plane buffers (two slots,
+        # like the parse buffers), made here when a stream may carry SBR
+        # (its core rate is at most 24 kHz, or the ASC says so), else at the
+        # first HE chunk; and per slot the event after which the last copy
+        # of its SBR planes has landed
+        self._sbr_bufs: list[dict] | None = None
+        self._sbr_h2d_done: list[torch.cuda.Event | None] = [None, None]
+        if self.use_native and any(cfg.sbr or cfg.sample_rate <= 24000
+                                   for cfg in configs):
+            self._he_buffers()
         self._pending_steps: dict[int, tuple] = {}
         # a reset asked for while a pipelined generator runs waits for the
         # next chunk boundary (request_reset)
@@ -199,6 +251,23 @@ class BatchDecoder:
         bind("cce_time_idx", (arrays.time_cap, 3), torch.int32)
         bind("cce_time_gain", (arrays.time_cap,), torch.float32)
         return arrays, host
+
+    def _pinned(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, pin_memory=self._cuda)
+
+    def _he_buffers(self) -> None:
+        """Bind the q/sf spectra into both parse buffers and make the two
+        slots of SBR-plane buffers (once)."""
+        if self._sbr_bufs is not None:
+            return
+        for arrays, host in self._buffers or ():
+            for name, (dtype, dims) in _qsf_fields(self.F).items():
+                host[name] = self._pinned((self.C, self.T) + dims, dtype)
+                setattr(arrays, name, host[name].numpy())
+        self._sbr_bufs = [
+            {name: self._pinned((self.C, self.T) + dims, dtype)
+             for name, (dtype, dims) in _SBR_COMPACT_FIELDS.items()}
+            for _ in range(2)]
 
     def _on_compute(self):
         """Context in which device work joins the compute stream."""
@@ -312,14 +381,24 @@ class BatchDecoder:
 
     # -- host parse: the native route --------------------------------------------
     def _parse_native(self, payloads_per_stream, buf_slot: int = 0,
-                      compact: bool = True) -> dict:
+                      compact: bool = True, qsf: bool = False) -> dict:
         """One native C call parses every stream's chunk into buffer
         `buf_slot`.  Returns a batch of host tensors plus '_'-prefixed
         host-side facts.  A batch with a Main-profile stream ships exact f32
         spectra whatever `compact` says: the predictor's state feeds back
-        across frames and is sensitive to the last bit."""
+        across frames and is sensitive to the last bit.
+
+        qsf=True (the HE core) asks for the exact-i16 q/sf spectra (raw
+        quantized coefficients and a scalefactor byte per 4 bins,
+        dequantized on the device bit for bit); they travel only when every
+        stream of the chunk could take them (native qsf_ok: no PNS,
+        intensity, M/S, coupling or escape > 8191) and no DRC gain applies,
+        else the exact f32 spectra do.  The SBR FIL records land in
+        _last_fil_sbr."""
         if self._any_main:
             compact = False
+        if qsf:
+            self._he_buffers()
         if self._buffers is None:
             raise RuntimeError("this decoder was made with use_native=False")
         arrays, host = self._buffers[buf_slot]
@@ -332,11 +411,15 @@ class BatchDecoder:
         status, has_tns, errmsg = native.parse_batch_spec(
             payloads_per_stream, self._sample_indices, self._chan_configs,
             self._base_slots, self._n_slots, self.prev_shapes, arrays,
-            tables_pack=self._tables_pack, want_pred=self._any_main)
+            tables_pack=self._tables_pack, want_qsf=qsf,
+            want_pred=self._any_main)
         self._last_status = status
         self._last_consumed = arrays.consumed_bits
+        self._last_fil_sbr = arrays.fil_sbr
+        use_qsf = qsf and bool(arrays.qsf_ok.all())
         if self.drc_scale > 0 and arrays.fil_drc.any():
             self._apply_native_drc(payloads_per_stream, arrays)
+            use_qsf = False   # DRC gains fold into the f32 spectra only
         for i, st in enumerate(self.streams):
             code = int(status[i])
             if code == native.ERR_FALLBACK:
@@ -356,7 +439,9 @@ class BatchDecoder:
                 st.frames_decoded += len(payloads_per_stream[i] or [])
             elif payloads_per_stream[i]:
                 st.frames_decoded += len(payloads_per_stream[i])
-        if compact:
+        if use_qsf:
+            keys = ["spec_q", "spec_sf", "meta"]
+        elif compact:
             native.compact_spec(arrays)   # writes into the host tensors
             keys = ["spec_i16", "spec_scale", "meta"]
         else:
@@ -380,7 +465,8 @@ class BatchDecoder:
         meta = arrays.meta
         batch.update(
             _slot=buf_slot, _has_tns=has_tns,
-            _has_short=bool(meta[:, :, 4].any()), _spec_i16=compact,
+            _has_short=bool(meta[:, :, 4].any()),
+            _spec_i16=compact and not use_qsf, _spec_qsf=use_qsf,
             _has_pred=self._any_main, _has_cce_post=n_post > 0,
             _has_cce_time=n_time > 0,
             _parse_seconds=time.perf_counter() - t0,
@@ -452,7 +538,7 @@ class BatchDecoder:
             has_stereo=False, has_tns=facts["_has_tns"], out_int16=out_int16,
             use_pallas=use_pallas, has_cce_post=facts["_has_cce_post"],
             has_cce_time=facts["_has_cce_time"], spec_i16=facts["_spec_i16"],
-            has_pred=facts["_has_pred"], has_short=facts["_has_short"],
+            spec_qsf=facts["_spec_qsf"], has_pred=facts["_has_pred"], has_short=facts["_has_short"],
             eld=self._eld)
         t0 = time.perf_counter()
         done = None
@@ -645,6 +731,515 @@ class BatchDecoder:
             down_pool.shutdown(wait=True)
             self._apply_deferred_resets()
 
+    # -- HE-AAC (SBR) --------------------------------------------------------
+    def _sbr_init(self) -> None:
+        """The SBR state, made at the first HE chunk: per stream the SBR
+        parse context, per slot the host's sequential state, the float64
+        replay processors of sticky slots, the per-slot header cfg planes
+        and the device state.  The Parametric Stereo fields keep their
+        empty values (ROADMAP Queue 1 item 9)."""
+        if hasattr(self, "_sbr_ctxs"):
+            return
+        self._sbr_ctxs = [
+            sbrmod.SBRContext(sample_rate=2 * st.config.sample_rate)
+            for st in self.streams]
+        self._sbr_host_states = [SP.SBRHostState() for _ in range(self.C)]
+        self._sbr_np_procs: list = [None] * self.C
+        # slots replaying on the float64 path (a header change mid-chunk):
+        # their filterbank state lives in the processor until
+        # _readopt_sticky moves it back to the device at a chunk boundary
+        self._sbr_np_sticky = [False] * self.C
+        with self._on_compute():
+            self._sbr_dev_state = SB.sbr_state_init(self.C, self.device)
+        # per-slot header statics as rows of the cfg planes that the one
+        # SBR program reads, so headers may mix across the batch;
+        # _slot_sbr_key tracks the (header, id(tables)) rendered in a row.
+        # _sbr_cfg_snap is the planes' copy the next chunk runs with (None
+        # after a row changed), _sbr_cfg_dev its device copy
+        self._sbr_cfg_planes = SB.cfg_planes_zeros(self.C)
+        self._slot_sbr_key: list = [None] * self.C
+        self._slot_sbr_hdr: list = [None] * self.C
+        self._sbr_cfg_snap: dict | None = None
+        self._sbr_cfg_dev: tuple | None = None
+        # sticky slots _readopt_sticky could not re-adopt yet
+        self._readopt_blocked: set[int] = set()
+        # parsed context-free SBR payloads, shared across streams: serving
+        # fleets repeat identical payloads
+        self._sbr_parse_cache: dict = {}
+        self._ps_enabled = False
+        self._ps_slot_is34: list = [None] * self.C
+        self._ps_dense = None
+        self._ps_pack_states: list = [None] * self.C
+        self._ps_pair = [-1] * self.C
+        self._ps_dev_states: dict = {False: None, True: None}
+        self._ps_fresh: dict = {False: False, True: False}
+        self._ps_row_seeds: dict = {False: {}, True: {}}
+        self._ps_np: list = [None] * self.C
+
+    def _ps_engage(self, slot: int) -> None:
+        raise NotImplementedError(
+            f"{HE_NEXT}: slot {slot} carries ps_data")
+
+    def _sbr_chunk_begin(self, payloads_per_stream) -> None:
+        """Per-chunk bookkeeping for the float64 replay: frame counts per
+        slot, the slot's SBR records, and a snapshot of the host's
+        sequential state (a slot that turns sticky mid-chunk replays its
+        whole chunk from the state before it)."""
+        self._chunk_nframes = [0] * self.C
+        for st, payloads in zip(self.streams, payloads_per_stream):
+            for s in range(st.base_slot, st.base_slot + st.n_slots):
+                self._chunk_nframes[s] = len(payloads or [])
+        self._chunk_sbr_records: list[list] = [[] for _ in range(self.C)]
+        # slots that packed an SBR frame this chunk: their cfg row is frozen
+        # for the chunk
+        self._sbr_packed_chunk = [False] * self.C
+
+        def clone(hs):
+            return SP.SBRHostState(
+                bw=hs.bw.copy(),
+                invf_prev=(None if hs.invf_prev is None
+                           else hs.invf_prev.copy()),
+                index_noise=hs.index_noise, index_sine=hs.index_sine,
+                la_prev=hs.la_prev,
+                s_index_prev=(None if hs.s_index_prev is None
+                              else hs.s_index_prev.copy()),
+                t_env_last=hs.t_env_last)
+
+        self._host_state_snap = [
+            None if self._sbr_np_sticky[s] else
+            clone(self._sbr_host_states[s]) for s in range(self.C)]
+
+    def _sbr_pack_payload(self, dense, sf, slot: int, nch: int,
+                          t: int) -> None:
+        """Pack one parsed SBRFrame into the dense planes.  A header change
+        re-renders the slot's cfg row when the slot has packed no SBR frame
+        this chunk; mid-chunk, the slot replays the chunk on the float64
+        path and re-adopts at the next boundary.  VAR-class envelope
+        overhang runs on the device (the program's Y carry)."""
+        if nch == 1 and getattr(sf, "ps", None) is not None:
+            self._ps_engage(slot)
+        eq = sbrmod.dequant(sf)
+        key = (sf.header, id(sf.tables))
+        for c in range(nch):
+            s = slot + c
+            self._chunk_sbr_records[s].append((t, sf, c, eq[c]))
+            if self._slot_sbr_key[s] != key and not self._sbr_np_sticky[s]:
+                if self._sbr_packed_chunk[s]:
+                    self._sbr_np_sticky[s] = True
+                else:
+                    self._set_cfg_row(s, sf.header, sf.tables)
+            if not self._sbr_np_sticky[s]:
+                SP.pack_channel_frame(dense, s, t, self._sbr_host_states[s],
+                                      sf, c, eq[c])
+                self._sbr_packed_chunk[s] = True
+
+    def _set_cfg_row(self, s: int, hdr, tbl) -> None:
+        """Render slot `s`'s header statics into its cfg-plane row; the
+        next chunk takes a fresh copy of the planes."""
+        limgain = float(sbrmod._consts()["limgain"][hdr.limiter_gains])
+        SB.set_cfg_row(self._sbr_cfg_planes, s,
+                       SB.SBRStaticConfig.from_tables(tbl, limgain))
+        self._slot_sbr_key[s] = (hdr, id(tbl))
+        self._slot_sbr_hdr[s] = hdr
+        self._sbr_cfg_snap = None
+
+    def _clear_cfg_row(self, s: int) -> None:
+        if self._slot_sbr_key[s] is None:
+            return
+        zero = SB.cfg_planes_zeros(1)
+        for k in self._sbr_cfg_planes:
+            self._sbr_cfg_planes[k][s] = zero[k][0]
+        self._slot_sbr_key[s] = None
+        self._slot_sbr_hdr[s] = None
+        self._sbr_cfg_snap = None
+
+    def _cfg_planes_device(self, snap: dict) -> dict:
+        """The cfg planes `snap` on the device, kept until the planes
+        change: steady chunks copy no cfg bytes."""
+        if self._sbr_cfg_dev is None or self._sbr_cfg_dev[0] is not snap:
+            with self._on_compute():
+                dev = {k: torch.from_numpy(v).to(self.device)
+                       for k, v in snap.items()}
+            self._sbr_cfg_dev = (snap, dev)
+        return self._sbr_cfg_dev[1]
+
+    def _he_ctx(self, buf_slot: int) -> dict:
+        """One chunk's SBR bookkeeping, captured so that the device phase
+        can run on a worker while the next chunk parses (the captured
+        objects are made anew per chunk; the sticky set and the cfg planes
+        are frozen here).  Slots with no SBR payload yet keep a zeroed cfg
+        row (has_sbr = 0 routes them through the upsampling branch)."""
+        if self._sbr_cfg_snap is None:
+            self._sbr_cfg_snap = {k: v.copy()
+                                  for k, v in self._sbr_cfg_planes.items()}
+        return dict(
+            nframes=self._chunk_nframes,
+            records=self._chunk_sbr_records,
+            host_snap=self._host_state_snap,
+            sticky=[s for s in range(self.C)
+                    if self._sbr_np_sticky[s] and self._chunk_nframes[s]],
+            cfg=self._sbr_cfg_snap, slot=buf_slot)
+
+    def _stage_dense(self, dense, compact: bool, buf_slot: int) -> dict:
+        """The SBR planes as host tensors for the copy to the device:
+        compacted (sbr_pack.compact_dense) into the pinned buffers of
+        `buf_slot`, or the exact planes as they are."""
+        if not compact:
+            return {k: torch.from_numpy(v) for k, v in vars(dense).items()}
+        planes = SP.compact_dense(dense, buf_slot)
+        if not self._cuda:
+            return {k: torch.from_numpy(v) for k, v in planes.items()}
+        self._he_buffers()
+        ev = self._sbr_h2d_done[buf_slot]
+        if ev is not None:
+            ev.synchronize()   # the last copy out of these buffers landed
+        bufs = self._sbr_bufs[buf_slot]
+        for k, v in planes.items():
+            np.copyto(bufs[k].numpy(), v)
+        return bufs
+
+    def _upload_dense(self, dense: dict, buf_slot: int) -> dict:
+        """Copy the SBR planes to the device on the copy stream; the compute
+        stream, and the next staging into the same buffers, wait for it."""
+        if not self._cuda:
+            return dense
+        with torch.cuda.stream(self._h2d_stream):
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in dense.items()}
+            ev = torch.cuda.Event()
+            ev.record(self._h2d_stream)
+        self._sbr_h2d_done[buf_slot] = ev
+        self._compute_stream.wait_event(ev)
+        for v in dev.values():
+            v.record_stream(self._compute_stream)
+        return dev
+
+    def _he_host_phase(self, payloads_per_stream, compact: bool = True,
+                       buf_slot: int = 0):
+        """Host half of one HE chunk on the native route: the C core parse
+        (which records the SBR FIL positions), the Python parse of the SBR
+        extensions, the dense pack.  Returns (parsed core, SBR planes, ctx)
+        for the device half, which may run on a worker while the next
+        chunk's host phase runs.
+
+        The core spectra stay exact: the envelope adjuster divides by the
+        source bands' energies, so the int16 compaction's error would be
+        amplified ~100x on near-empty bands.  compact=True sends them as
+        the exact q/sf form (2.25 bytes a bin) where the chunk allows it and
+        the SBR planes compacted; compact=False sends f32 spectra and the
+        exact planes."""
+        self._sbr_init()
+        self._sbr_chunk_begin(payloads_per_stream)
+        dense = (SP.alloc_dense_cached(self.C, self.T, buf_slot) if compact
+                 else SP.alloc_dense(self.C, self.T))
+        parsed = self._parse_native(payloads_per_stream, buf_slot=buf_slot,
+                                    compact=False, qsf=compact)
+        fil = self._last_fil_sbr
+        g = 0
+        cache = self._sbr_parse_cache
+        for i, payloads in enumerate(payloads_per_stream):
+            ctx = self._sbr_ctxs[i]
+            for t, payload in enumerate(payloads or []):
+                for rec in fil[g]:
+                    bitpos, slot, nch = int(rec[0]), int(rec[1]), int(rec[2])
+                    if bitpos == 0:
+                        continue
+                    key = (payload, bitpos, nch)
+                    sf = cache.get(key)
+                    if sf is not None and sf.header == ctx.header:
+                        sbrmod.apply_frame_state(ctx, sf)
+                    else:
+                        r = BitReader(payload)
+                        r.seek_bits(bitpos)
+                        ext_type = r.read(4)
+                        sf = sbrmod.read_sbr_extension(
+                            r, ctx, nch == 2,
+                            ext_type == sbrmod.EXT_SBR_DATA_CRC)
+                        if sbrmod.frame_is_context_free(sf):
+                            if len(cache) > 512:
+                                cache.clear()
+                            cache[key] = sf
+                    self._sbr_pack_payload(dense, sf, slot, nch, t)
+                g += 1
+        return (parsed, self._stage_dense(dense, compact, buf_slot),
+                self._he_ctx(buf_slot))
+
+    def _sbr_dispatch(self, core_pcm, dense: dict, ctx: dict,
+                      out_int16: bool = False):
+        """Device half of the SBR stage: copy the planes up and run the
+        batched SBR program on the device-resident core PCM, on the compute
+        stream.  Slots that turn sticky this chunk first get host copies of
+        their state rows as it stands before the step (their float64 replay
+        continues from it).  Returns (device PCM [C, T, 2F], seeds) for
+        _sbr_download; int16 PCM when out_int16 and no slot is sticky."""
+        sticky = ctx["sticky"]
+        prev = self._sbr_dev_state
+        fresh = [s for s in sticky if self._sbr_np_procs[s] is None]
+        with self._on_compute():
+            seeds = {s: tuple(prev[k][s].cpu().numpy().astype(np.float64)
+                              for k in _SEED_KEYS) for s in fresh}
+        dev_dense = self._upload_dense(dense, ctx["slot"])
+        cfg = self._cfg_planes_device(ctx["cfg"])
+        done = None
+        with self._on_compute():
+            pcm2, state = SB.sbr_apply(core_pcm, dev_dense, prev, cfg,
+                                       out_int16 and not sticky)
+            # contiguous: the state outlives the chunk's large intermediates
+            self._sbr_dev_state = {k: v.contiguous() for k, v in state.items()}
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record(self._compute_stream)
+        # the core step's stats record now completes with the SBR output
+        pending = self._pending_steps.pop(id(core_pcm), None)
+        if pending is not None:
+            self._pending_steps[id(pcm2)] = pending[:4] + (done,)
+        return pcm2, seeds
+
+    def _sbr_stage(self, core_pcm, dense: dict, ctx: dict,
+                   out_int16: bool = False) -> np.ndarray:
+        """Dispatch and download of the SBR stage in one call."""
+        pcm2, seeds = self._sbr_dispatch(core_pcm, dense, ctx, out_int16)
+        return self._sbr_download(pcm2, seeds, ctx, core_pcm)
+
+    def _sbr_download(self, pcm2, seeds: dict, ctx: dict,
+                      core_pcm) -> np.ndarray:
+        """Host half of the SBR stage: bring the PCM to the host, then
+        replay the sticky slots on the float64 per-channel path, a slot
+        that has just turned sticky starting from its pre-chunk device
+        state (seeds) and host snapshot, so the switch is continuous."""
+        sticky = ctx["sticky"]
+        out = self.finalize_step(pcm2)
+        if not sticky:
+            return out
+        # finalize_step waited for the SBR step, which followed the core's
+        core_np = core_pcm.cpu().numpy()
+        for slot in sticky:
+            proc = self._sbr_np_procs[slot]
+            if proc is None:
+                proc = SD.SBRChannelProc()
+                hs = ctx["host_snap"][slot]
+                if hs is not None:
+                    proc.bw = np.asarray(hs.bw, np.float64).copy()
+                    proc.invf_prev = (None if hs.invf_prev is None
+                                      else np.array(hs.invf_prev))
+                    proc.index_noise = hs.index_noise
+                    proc.index_sine = hs.index_sine
+                    proc.la_prev = hs.la_prev
+                    proc.s_index_prev = (None if hs.s_index_prev is None
+                                         else np.array(hs.s_index_prev))
+                    proc.t_env_last = hs.t_env_last
+                x_hist, v_hist, xlr, xli, ytr, yti = seeds[slot]
+                proc.x_hist = x_hist
+                proc.v_hist = v_hist
+                proc.xlow_hist = xlr + 1j * xli
+                proc.y_tail = ytr + 1j * yti
+                self._sbr_np_procs[slot] = proc
+            recs = {t: (sf, c, eq) for (t, sf, c, eq) in ctx["records"][slot]}
+            for t in range(ctx["nframes"][slot]):
+                core = core_np[slot, t].astype(np.float64)
+                if t in recs:
+                    sf, c, eq = recs[t]
+                    out[slot, t] = SD.process_channel(proc, core, sf, c, eq)
+                else:
+                    out[slot, t] = SD.process_passthrough(proc, core)
+        return out
+
+    def _readopt_sticky(self) -> set[int]:
+        """Move sticky slots back onto the batched path at a settled chunk
+        boundary: re-render the slot's cfg row from its stream's current
+        header, rebuild its device state rows (x_hist, xlow, ytail, v_hist)
+        from its float64 processor and its SBRHostState from the same.
+        Returns the slots that cannot re-adopt yet (no header seen since the
+        divert); they retry at every boundary."""
+        if not hasattr(self, "_sbr_ctxs"):
+            return set()
+        sticky = [s for s in range(self.C) if self._sbr_np_sticky[s]]
+        if not sticky:
+            self._readopt_blocked = set()
+            return set()
+        slot_stream = np.zeros(self.C, np.int32)
+        for i, st in enumerate(self.streams):
+            slot_stream[st.base_slot: st.base_slot + st.n_slots] = i
+        blocked = set()
+        rows = {k: [] for k in ("slot",) + _SEED_KEYS}
+        for s in sticky:
+            ctx = self._sbr_ctxs[int(slot_stream[s])]
+            proc = self._sbr_np_procs[s]
+            if proc is None or ctx.header is None:
+                blocked.add(s)
+                continue
+            self._set_cfg_row(s, ctx.header, sbrmod.derive_tables(
+                ctx.header, ctx.sample_rate))
+            rows["slot"].append(s)
+            for k, v in (("x_hist", proc.x_hist), ("v_hist", proc.v_hist),
+                         ("xlow_r", proc.xlow_hist.real),
+                         ("xlow_i", proc.xlow_hist.imag),
+                         ("ytail_r", proc.y_tail.real),
+                         ("ytail_i", proc.y_tail.imag)):
+                rows[k].append(np.asarray(v, np.float32))
+            self._sbr_host_states[s] = SP.SBRHostState(
+                bw=np.asarray(proc.bw, np.float64).copy(),
+                invf_prev=(None if proc.invf_prev is None
+                           else np.array(proc.invf_prev)),
+                index_noise=proc.index_noise, index_sine=proc.index_sine,
+                la_prev=proc.la_prev,
+                s_index_prev=(None if proc.s_index_prev is None
+                              else np.array(proc.s_index_prev)),
+                t_env_last=proc.t_env_last)
+            self._sbr_np_procs[s] = None
+            self._sbr_np_sticky[s] = False
+        if rows["slot"]:
+            with self._on_compute():
+                idx = torch.tensor(rows["slot"], device=self.device)
+                for k in _SEED_KEYS:
+                    self._sbr_dev_state[k][idx] = torch.from_numpy(
+                        np.stack(rows[k])).to(self.device)
+        self._readopt_blocked = blocked
+        return blocked
+
+    def step_he_raw(self, payloads_per_stream: list[list[bytes] | None],
+                    compact: bool = True,
+                    out_int16: bool = False) -> np.ndarray:
+        """Decode one chunk of HE-AAC streams: the core as step_raw does it
+        (native parse when built: the C walker records where each frame's
+        SBR extension sits, so Python parses only those), then the batched
+        SBR stage on the device-resident core PCM.  Returns [C, T, 2F]
+        PCM at the 2x output rate: f32 in the 1/32768 scale, or int16 with
+        out_int16 when no slot replays on the float64 path this chunk.
+
+        SBR headers are per-slot data, so any mix of headers decodes in the
+        one program; a mid-chunk header change replays that slot's chunk on
+        the float64 path and re-adopts at the next boundary.  compact: see
+        _he_host_phase (the python route ignores it)."""
+        # a chunk boundary with nothing in flight: re-adopt sticky slots
+        self._readopt_sticky()
+        if self.use_native:
+            parsed, dense, ctx = self._he_host_phase(payloads_per_stream,
+                                                     compact)
+            core_pcm = self._device_step(self._upload_batch(parsed),
+                                         out_int16=False)
+            return self._sbr_stage(core_pcm, dense, ctx, out_int16)
+
+        self._sbr_init()
+        self._sbr_chunk_begin(payloads_per_stream)
+        dense = SP.alloc_dense(self.C, self.T)
+        frames_per_stream: list[list | None] = []
+        for i, payloads in enumerate(payloads_per_stream):
+            if not payloads:
+                frames_per_stream.append(None)
+                continue
+            st = self.streams[i]
+            frames = []
+            for payload in payloads:
+                frame = decode_frame(BitReader(payload), st.config,
+                                     st.prev_shapes,
+                                     sbr_ctx=self._sbr_ctxs[i])
+                self._update_shapes(st, frame)
+                st.frames_decoded += 1
+                frames.append(frame)
+            frames_per_stream.append(frames)
+        per_slot, limits = [], []
+        for st, frames in zip(self.streams, frames_per_stream):
+            if frames:
+                per_slot.append((st.base_slot, frames))
+                limits.append(st.n_slots)
+        batch, flags = pack_frames(per_slot, self.C, self.T, limits,
+                                   frame_len=self.F, eld=self._eld)
+        flags = dataclasses.replace(flags, use_pallas=True)
+        with self._on_compute():
+            dev = {k: self._to_device(k, v) for k, v in batch.items()}
+            core_pcm, self.overlap = P.decode_step(dev, self.overlap,
+                                                   flags)[:2]
+        for st, frames in zip(self.streams, frames_per_stream):
+            for t, frame in enumerate(frames or []):
+                slot = st.base_slot
+                for elem in frame.elements:
+                    nch = 2 if isinstance(elem, CPEData) else 1
+                    sf = getattr(elem, "sbr", None)
+                    if sf is not None:
+                        self._sbr_pack_payload(dense, sf, slot, nch, t)
+                    slot += nch
+        return self._sbr_stage(core_pcm, self._stage_dense(dense, False, 0),
+                               self._he_ctx(0), out_int16)
+
+    def decode_he_pipelined(self, chunk_iter, out_int16: bool = True,
+                            compact: bool = True):
+        """Generator decoding an iterator of HE-AAC payload chunks on the
+        native route as a 3-stage pipeline, the HE counterpart of
+        decode_pipelined:
+
+            main thread    : host phase of chunk k (core parse, SBR parse,
+                             pack)
+            upload worker  : copies to the device, core and SBR steps of
+                             chunk k-1
+            download worker: copy to the host of chunk k-2, float64 replay
+                             of sticky slots
+
+        The copies run on their own CUDA streams, the steps on the compute
+        stream, ordered by events.  Each chunk's SBR bookkeeping is captured
+        into its own context, so the stages share no mutable chunk state.
+        Deferred resets and sticky re-adoption happen at a drained chunk
+        boundary.  Yields host PCM arrays [C, T, 2F] in chunk order."""
+        if not self.use_native:
+            raise RuntimeError("decode_he_pipelined requires the native "
+                               "parser (use step_he_raw)")
+        up_pool = concurrent.futures.ThreadPoolExecutor(1)
+        down_pool = concurrent.futures.ThreadPoolExecutor(1)
+        up_fut = down_fut = None
+        slot = 0
+
+        def upload_dispatch(host):
+            parsed, dense, ctx = host
+            core_pcm = self._device_step(self._upload_batch(parsed),
+                                         out_int16=False)
+            pcm2, seeds = self._sbr_dispatch(core_pcm, dense, ctx, out_int16)
+            return pcm2, seeds, ctx, core_pcm
+
+        def download(args):
+            return self._sbr_download(*args)
+
+        try:
+            self._pipeline_active = True
+            for chunk in chunk_iter:
+                readoptable = hasattr(self, "_sbr_np_sticky") and any(
+                    self._sbr_np_sticky[s] and s not in self._readopt_blocked
+                    for s in range(self.C))
+                if self._deferred_resets or readoptable:
+                    # resets and re-adoption touch state both workers use
+                    # (overlap, SBR device state, replay processors): drain
+                    # everything in flight first
+                    if up_fut is not None:
+                        args = up_fut.result()
+                        up_fut = None
+                        if down_fut is not None:
+                            yield down_fut.result()
+                        down_fut = down_pool.submit(download, args)
+                    if down_fut is not None:
+                        yield down_fut.result()
+                        down_fut = None
+                    self._apply_deferred_resets()
+                    self._readopt_sticky()
+                host = self._he_host_phase(chunk, compact, buf_slot=slot)
+                if up_fut is not None:
+                    args = up_fut.result()
+                    if down_fut is not None:
+                        yield down_fut.result()
+                    down_fut = down_pool.submit(download, args)
+                up_fut = up_pool.submit(upload_dispatch, host)
+                slot ^= 1
+            if up_fut is not None:
+                args = up_fut.result()
+                if down_fut is not None:
+                    yield down_fut.result()
+                down_fut = down_pool.submit(download, args)
+            if down_fut is not None:
+                yield down_fut.result()
+        finally:
+            self._pipeline_active = False
+            up_pool.shutdown(wait=True)
+            down_pool.shutdown(wait=True)
+            self._apply_deferred_resets()
+
     # -- stream reset --------------------------------------------------------
     def request_reset(self, idx: int, config: StreamConfig | None = None
                       ) -> None:
@@ -669,7 +1264,8 @@ class BatchDecoder:
                      ) -> None:
         """Recycle one stream's slots for a new client without touching the
         other streams: zeroes its decoder state (overlap, window-shape
-        history, predictor rows) and clears the failure flag.  An optional
+        history, predictor rows, SBR state and header rows) and clears the
+        failure flag.  An optional
         new config swaps the stream's tables in place; it must keep the
         batch's frame length and ELD-ness and fit the stream's slots.
 
@@ -710,13 +1306,31 @@ class BatchDecoder:
             if self._pred_state is not None:
                 self._pred_state[lo:hi] = pred.pred_state_init(
                     st.n_slots, self.device)
+            if hasattr(self, "_sbr_ctxs"):
+                for v in self._sbr_dev_state.values():
+                    v[lo:hi] = 0.0
+        if hasattr(self, "_sbr_ctxs"):
+            self._sbr_ctxs[idx] = sbrmod.SBRContext(
+                sample_rate=2 * st.config.sample_rate)
+            for s in range(lo, hi):
+                self._sbr_host_states[s] = SP.SBRHostState()
+                self._sbr_np_procs[s] = None
+                self._sbr_np_sticky[s] = False
+                self._readopt_blocked.discard(s)
+                self._clear_cfg_row(s)
 
     # -- state save/restore --------------------------------------------------
     def save_state(self) -> dict:
-        """The decoder state at a chunk boundary, as numpy: overlap [C,F]
-        ([C,3F] for ELD), prev_shapes [C], frames_decoded per stream, and
-        pred_state [C,672,6] once a Main-profile chunk has run: the format
-        of aacjax's BatchDecoder.save_state for a batch without SBR."""
+        """The decoder state at a chunk boundary, as numpy arrays and
+        picklable objects: overlap [C,F] ([C,3F] for ELD), prev_shapes [C],
+        frames_decoded per stream, pred_state [C,672,6] once a Main-profile
+        chunk has run, and once an HE chunk has run the `sbr` dict: the
+        device FIFOs (`dev`, with aacjax's names and shapes), the parse
+        contexts, the host's sequential state, the float64 processors of
+        sticky slots, the per-slot headers, and the Parametric Stereo
+        fields with their empty values.  The format of aacjax's
+        BatchDecoder.save_state."""
+        import copy
         if self._pipeline_active:
             raise RuntimeError("save_state with a pipelined chunk in "
                                "flight; drain the generator first")
@@ -728,16 +1342,35 @@ class BatchDecoder:
         }
         if self._pred_state is not None:
             out["pred_state"] = self._pred_state.cpu().numpy().copy()
+        if hasattr(self, "_sbr_ctxs"):
+            out["sbr"] = dict(
+                dev={k: v.cpu().numpy().copy()
+                     for k, v in self._sbr_dev_state.items()},
+                ctxs=copy.deepcopy(self._sbr_ctxs),
+                host=copy.deepcopy(self._sbr_host_states),
+                procs=copy.deepcopy(self._sbr_np_procs),
+                sticky=list(self._sbr_np_sticky),
+                slot_hdr=copy.deepcopy(self._slot_sbr_hdr),
+                ps_enabled=self._ps_enabled,
+                ps_slot_is34=list(self._ps_slot_is34),
+                ps_fresh=dict(self._ps_fresh),
+                ps_row_seeds=copy.deepcopy(self._ps_row_seeds),
+                ps_pair=list(self._ps_pair),
+                ps_pack=copy.deepcopy(self._ps_pack_states),
+                ps_np=copy.deepcopy(self._ps_np),
+                ps_dev={m: None for m in self._ps_dev_states})
         return out
 
     def restore_state(self, state: dict) -> None:
-        """Inverse of save_state; also takes the dict aacjax's
-        BatchDecoder.save_state returns for a batch of the same layout that
-        has decoded no HE-AAC."""
-        if "sbr" in state:
-            raise NotImplementedError(
-                "state key 'sbr': the SBR/PS state is not ported yet "
-                "(ROADMAP Queue 1 items 8 and 9)")
+        """Inverse of save_state; the decoder must have the same stream
+        layout (C, T, frame length).  Host objects are deep-copied, so the
+        checkpoint stays reusable.  Also takes the dict aacjax's
+        BatchDecoder.save_state returns for the same layout, but for a
+        batch that has decoded Parametric Stereo (ROADMAP Queue 1 item 9)."""
+        import copy
+        sbr = state.get("sbr")
+        if sbr is not None and sbr["ps_enabled"]:
+            raise NotImplementedError(f"{HE_NEXT}: the state holds PS state")
         self._sync_compute()
         self._set_overlap(np.asarray(state["overlap"]))
         self.prev_shapes[:] = state["prev_shapes"]    # in place: keeps views
@@ -750,3 +1383,31 @@ class BatchDecoder:
                                  f"expected {(self.C, P.PRED_BINS, 6)}")
             with self._on_compute():
                 self._pred_state = ps.to(self.device)
+        if sbr is None:
+            return
+        self._sbr_init()
+        with self._on_compute():
+            for k, v in sbr["dev"].items():
+                want = tuple(self._sbr_dev_state[k].shape)
+                if np.shape(v) != want:
+                    raise ValueError(f"sbr state {k}: shape {np.shape(v)}, "
+                                     f"expected {want}")
+                self._sbr_dev_state[k] = torch.from_numpy(
+                    np.array(v, np.float32)).to(self.device)
+        self._sbr_ctxs = copy.deepcopy(sbr["ctxs"])
+        self._sbr_host_states = copy.deepcopy(sbr["host"])
+        self._sbr_np_procs = copy.deepcopy(sbr["procs"])
+        self._sbr_np_sticky = list(sbr["sticky"])
+        # the cfg rows re-render from the restored headers (table identity
+        # is process-local)
+        self._sbr_cfg_planes = SB.cfg_planes_zeros(self.C)
+        self._slot_sbr_key = [None] * self.C
+        self._slot_sbr_hdr = [None] * self.C
+        self._sbr_cfg_snap = self._sbr_cfg_dev = None
+        for st, ctx in zip(self.streams, self._sbr_ctxs):
+            for s in range(st.base_slot, st.base_slot + st.n_slots):
+                hdr = sbr["slot_hdr"][s]
+                if hdr is not None:
+                    self._set_cfg_row(s, hdr, sbrmod.derive_tables(
+                        hdr, ctx.sample_rate))
+        self._readopt_blocked = set()

@@ -536,3 +536,161 @@ def multi_rdb_adts(n_blocks: int = 9, crc: bool = False, seed: int = 0
                                      target_sf=140)[:n_blocks]
     return b"".join(enc.adts_frame_multi(payloads[i:i + 3], cfg, crc=crc)
                     for i in range(0, len(payloads), 3))
+
+
+# -- HE-AAC v1 -------------------------------------------------------------
+def he_serving_corpus(n_unique: int, seconds: float, chunk: int):
+    """A serving corpus of HE-AAC v1 stereo streams built as the reference's
+    HE benchmark builds its one (`bench.py` `bench_he`): the core AAC-LC at
+    22.05 kHz (target_sf=122) from 8th-order Butterworth low-passed noise
+    (3.6 kHz, x9000), each frame carrying one SBR extension (start_freq 4,
+    stop_freq 3, two FIXFIX envelopes per channel at high frequency
+    resolution, inverse filtering LOW, envelope 25 and noise 24 in the
+    quantizer's units); 2x output to 44.1 kHz.  The reference encodes one
+    stream from seed 7; stream i here uses seed 7 + i.  Each stream is cut
+    to a whole number of `chunk`-frame chunks.  Returns (config, list of
+    payload lists)."""
+    from scipy import signal as sig
+
+    from aacjax_torch.host import sbr as S
+    from aacjax_torch.testing.sbr_encoder import SBRFrameSpec, sbr_payload
+    config = parse_asc(make_asc(2, 7, 2))    # 22.05 kHz core, stereo
+    h = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    t = S.derive_tables(h, 2 * config.sample_rate)
+    spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
+                        env_q=np.full((2, t.n_high), 25, np.int64),
+                        noise_q=np.full((2, t.n_q), 24, np.int64))
+    pay = sbr_payload([spec, spec], h, 2 * config.sample_rate)
+    n = int(seconds * config.sample_rate) // 1024 * 1024
+    bl, al = sig.butter(8, 3600 / (config.sample_rate / 2))
+    corpus = []
+    for i in range(n_unique):
+        rng = np.random.default_rng(7 + i)
+        x = sig.lfilter(bl, al, rng.standard_normal((n, 2)), axis=0) * 9000
+        frames = enc.encode_pcm_frames(x, config, target_sf=122,
+                                       fil_payloads=[pay])
+        corpus.append(list(frames[:len(frames) // chunk * chunk]))
+    return config, corpus
+
+
+def _quiet_tns_cpe(rng, cfg):
+    """A random legal common-window CPE whose channels both carry TNS, its
+    scalefactors shifted so the largest is 100: the PCM stays within
+    ~2^20 of full scale, where the SBR stage's energies fit in f32 (the
+    generator's raw gains reach 2^37)."""
+    while True:
+        left = random_channel_spec(rng, cfg, force_tns=True,
+                                   allow_pulse=False, allow_noise=False)
+        right = random_channel_spec(
+            rng, cfg, window_sequence=left.window_sequence,
+            grouping=left.grouping, max_sfb=left.max_sfb,
+            window_shape=left.window_shape, force_tns=True,
+            allow_pulse=False, allow_noise=False)
+        ok = True
+        for ch in (left, right):
+            coded = (ch.band_books > 0) & (ch.band_books <= 11)
+            d = int(ch.band_sf[coded].max()) - 100 if coded.any() else 0
+            ch.band_sf[coded] -= d
+            ch.global_gain -= d
+            ok &= 0 <= ch.global_gain <= 255 and bool(
+                (ch.band_sf[coded] >= 0).all())
+        if ok:
+            return enc.CPESpec(left=left, right=right, common_window=True,
+                               ms_type=0, ms_used=np.zeros(128, bool))
+
+
+def he_stream(n_frames: int = 7, ch: int = 2, seed: int = 1, header=None,
+              tns: bool = False, header_at=()) -> bytes:
+    """An HE-AAC v1 ADTS stream (22.05 kHz core, 44.1 kHz out) of low-passed
+    noise with a small broadband floor, one SBR extension a frame (two
+    envelopes, inverse filtering LOW).  `header` is the SBR header (start 4,
+    stop 3 by default); `header_at` maps frame -> a header that replaces it
+    from that frame on (written into that frame's extension); with `tns`
+    the core frames are random legal CPE frames with TNS instead of
+    encoded noise (stereo only)."""
+    from aacjax_torch.host import sbr as S
+    from aacjax_torch.testing.sbr_encoder import (SBRFrameSpec, sbr_payload,
+                                                  write_sbr_fil)
+    rng = np.random.default_rng(seed)
+    cfg = parse_asc(make_asc(2, 7, ch))
+    hdr = header or S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3,
+                                xover_band=0)
+    changes = dict(header_at)
+    pays = []
+    for f in range(n_frames):
+        hdr = changes.get(f, hdr)
+        t = S.derive_tables(hdr, 2 * cfg.sample_rate)
+        spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
+                            env_q=np.full((2, t.n_high), 25, np.int64),
+                            noise_q=np.full((2, t.n_q), 30, np.int64))
+        pays.append(sbr_payload([spec] * ch, hdr, 2 * cfg.sample_rate,
+                                write_header=(f == 0 or f in changes)))
+    if tns:
+        out = []
+        for f in range(n_frames):
+            w = BitWriter()
+            enc.write_cpe(w, _quiet_tns_cpe(rng, cfg), cfg)
+            write_sbr_fil(w, pays[f])
+            out.append(enc.adts_frame(enc.end_frame(w), cfg))
+        return b"".join(out)
+    x = rng.standard_normal((1024 * n_frames + 256, ch))
+    k = np.hanning(65) * np.sinc(np.linspace(-8, 8, 65) * 0.4)
+    for c in range(ch):
+        x[:, c] = np.convolve(x[:, c], k, mode="same")
+    x = x[:1024 * n_frames] + 0.03 * rng.standard_normal((1024 * n_frames, ch))
+    x = x * 27000 / max(1.0, np.abs(x).max())
+    frames = enc.encode_pcm_frames(x, cfg, target_sf=118, fil_payloads=pays)
+    return b"".join(enc.adts_frame(p, cfg) for p in frames)
+
+
+def he_ps_stream(n_frames: int = 3, seed: int = 2) -> bytes:
+    """An HE-AAC v2 mono ADTS stream: one SBR extension a frame carrying
+    ps_data (the reference benchmark's PS payload without IPD/OPD)."""
+    from aacjax_torch.host import sbr as S
+    from aacjax_torch.testing.sbr_encoder import (PSSpec, SBRFrameSpec,
+                                                  sbr_payload)
+    config = parse_asc(make_asc(2, 7, 1))
+    h = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    t = S.derive_tables(h, 2 * config.sample_rate)
+    spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
+                        env_q=np.full((2, t.n_high), 25, np.int64),
+                        noise_q=np.full((2, t.n_q), 24, np.int64))
+    ps = PSSpec(iid_mode=0, num_env=2,
+                iid_par=np.stack([np.arange(10) % 15 - 7,
+                                  7 - np.arange(10) % 15]),
+                icc_mode=0, icc_par=np.arange(20).reshape(2, 10) % 8)
+    pay = sbr_payload([spec], h, 2 * config.sample_rate, ps=ps)
+    x = np.random.default_rng(seed).standard_normal((1024 * n_frames, 1))
+    frames = enc.encode_pcm_frames(x * 3000, config, target_sf=118,
+                                   fil_payloads=[pay])
+    return b"".join(enc.adts_frame(p, config) for p in frames)
+
+
+def he_chunk(n_streams: int, T: int, seconds: float = 1.0):
+    """One chunk of HE-AAC v1 serving traffic: (config, payload lists of
+    n_streams stereo streams, T frames each) from `he_serving_corpus(2,
+    seconds, T)`."""
+    config, corpus = he_serving_corpus(2, seconds, T)
+    return config, [corpus[i % len(corpus)][:T] for i in range(n_streams)]
+
+
+def sbr_apply_inputs(n_streams: int, T: int, device, compact: bool = False):
+    """The inputs `sbr_batch.sbr_apply` takes on the HE serving path, for
+    one chunk of `he_chunk` traffic (C = 2 * n_streams slots): (core PCM
+    [C, T, 1024] f32, SBR planes, cfg planes, zero state), tensors on
+    `device`, from BatchDecoder's native route there.  compact picks the
+    compact planes (the serving transfer) over the exact ones."""
+    import torch
+
+    from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime.batch import BatchDecoder
+    config, chunk = he_chunk(n_streams, T)
+    dec = BatchDecoder([config] * n_streams, chunk_frames=T, device=device)
+    parsed, dense, ctx = dec._he_host_phase(chunk, compact=compact)
+    core = dec._device_step(dec._upload_batch(parsed), out_int16=False)
+    dev = torch.device(device)
+    planes = {k: v.to(dev) for k, v in dense.items()}
+    cfg = {k: torch.from_numpy(v).to(dev) for k, v in ctx["cfg"].items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return core, planes, cfg, SB.sbr_state_init(dec.C, dev)

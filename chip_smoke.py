@@ -47,7 +47,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      call on the CPU: Main with intensity stereo (delegated to the python
      parser and packer, decode_step on the card), ELD-512 and LD-480 through
      decode_loas, 960-sample frames through AACDecoder, frames of three
-     raw_data_blocks, and AAC-LTP.
+     raw_data_blocks, and AAC-LTP;
+  5. HE-AAC v1 (SBR; PyTorch on the card, as the reference's SBR program is
+     plain XLA): right after phase 2, the QMF banks at B = 1024, S = 256 and
+     one sbr_apply at the HE-512 chunk's shape (f32 and int16) against the
+     same calls on the CPU, its time, peak memory and ten costliest device
+     ops (torch.profiler); after phase 4, HE-512 -- 512 HE-AAC v1 stereo
+     streams (C = 1024; 22.05 kHz core, 44.1 kHz out; bench_he's corpus),
+     chunk_frames=8, decode_he_pipelined with int16 PCM, 2 runs of 4
+     chunks: launch counts (1 tail a chunk on the q/sf core), peak memory,
+     every chunk against the same route's step and its core against the
+     plain core route, he_aac_aggregate_realtime_x per run, the stage split
+     (host phase, the two copies up, core and SBR compute, the copy down)
+     and a cProfile of one host phase; then decode_adts on an HE stream
+     whose core carries TNS, the streaming AACDecoder, and step_he_raw over
+     a mid-chunk SBR header change (float64 replay, re-adoption), each
+     against the CPU.
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
@@ -780,6 +795,335 @@ def phase_routes() -> None:
     say(f"routes: AAC-LTP (the host's float64 decoder): {got.shape} equal")
 
 
+# -- HE-AAC v1 ---------------------------------------------------------------
+HE_CHUNK = 8         # frames a chunk on the HE path (bench_he's HE-512)
+HE_WINDOWS = 2       # pipelined runs of the HE-512 pass
+HE_MAX_CHUNKS = 4    # chunks a run
+# f32 tolerances of the HE checks, relative to max(1, max|ref|): the SBR
+# program and QMF banks against the same calls on the CPU on the same
+# inputs (the envelope gains divide by the patched bands' energies, so
+# reordered sums grow there); and whole HE decodes on the card against the
+# CPU, whose cores differ by the kernels' FFT IMDCT against the plain
+# versions' dense product (agreeing to 5e-5 * max(1, max|ref|) in the PCM,
+# far less in practice), a difference the same division amplifies
+HE_TOL = 2e-4
+HE_ROUTE_TOL = 1e-3
+
+
+def he_close(got, want, what: str, tol: float = HE_TOL) -> float:
+    """HE f32 output (PCM or state) against its reference within
+    tol * max(1, max|ref|).  Returns the error relative to max(1, max|ref|)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} against "
+          f"{want.shape}")
+    check(bool(np.isfinite(got).all()), f"{what}: non-finite output")
+    err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+    check(err <= tol, f"{what}: max err {err} * max(1, max|ref|) > {tol}")
+    return err
+
+
+def dev_time(e) -> float:
+    return getattr(e, "device_time_total", 0.0) or 0.0
+
+
+def phase_he_checks(torch, dev) -> None:
+    """The QMF banks at B = 1024, S = 256 and one sbr_apply at the HE-512
+    chunk's shape (512 stereo streams, C = 1024, T = 8, compact planes),
+    f32 and int16, on the card against the same calls on the CPU; then the
+    sbr_apply's time and the ten device ops of it that take the most time
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import qmf
+    from aacjax_torch.kernels import sbr_batch as SB
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((1024, 32 * 256)).astype(
+        np.float32) * 3000)
+    h = torch.from_numpy(rng.standard_normal((1024, 288)).astype(
+        np.float32) * 3000)
+    errs = [he_close(g.cpu(), w, f"qmf.analysis {name}") for name, g, w in
+            zip(("re", "im", "history"), qmf.analysis(x.to(dev), h.to(dev)),
+                qmf.analysis(x, h))]
+    xr, xi = (torch.from_numpy(rng.standard_normal((1024, 256, 64)).astype(
+        np.float32) * 300) for _ in range(2))
+    vh = torch.from_numpy(rng.standard_normal((1024, 9, 128)).astype(
+        np.float32) * 30)
+    errs += [he_close(g.cpu(), w, f"qmf.synthesis {name}") for name, g, w in
+             zip(("pcm", "history"),
+                 qmf.synthesis(xr.to(dev), xi.to(dev), vh.to(dev)),
+                 qmf.synthesis(xr, xi, vh))]
+    say(f"he: qmf.analysis and qmf.synthesis at B=1024, S=256 match the CPU "
+        f"(max err {max(errs):.4g} * max(1, max|ref|))")
+
+    t0 = time.perf_counter()
+    core, planes, cfg, state = TI.sbr_apply_inputs(N_STREAMS, HE_CHUNK, dev,
+                                                   compact=True)
+    say(f"he: sbr_apply inputs of one HE-512 chunk made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def cpu(d):
+        return {k: v.cpu() for k, v in d.items()}
+    for out_int16 in (False, True):
+        got, got_state = SB.sbr_apply(core, planes, state, cfg, out_int16)
+        want, want_state = SB.sbr_apply(core.cpu(), cpu(planes), cpu(state),
+                                        cpu(cfg), out_int16)
+        if out_int16:
+            from aacjax_torch.testing import assert_pcm_close
+            err = assert_pcm_close(got.cpu(), want, True, "sbr_apply int16")
+            share = float((got.cpu() != want).float().mean())
+            what = f"int16 within 1 LSB ({share:.5f} of samples differ)"
+        else:
+            err = he_close(got.cpu(), want, "sbr_apply f32")
+            what = f"f32 max err {err:.4g} * max(1, max|ref|) (max|ref| " \
+                   f"{float(want.abs().max()):.4g})"
+        serr = max(he_close(got_state[k].cpu(), want_state[k],
+                            f"sbr_apply state {k}") for k in want_state)
+        say(f"he: sbr_apply C=1024 T=8 on the card matches the CPU: {what}; "
+            f"state max err {serr:.4g} * max(1, max|ref|)")
+
+    def run():
+        return SB.sbr_apply(core, planes, state, cfg, True)
+    ms = time_ms(torch, run, runs=10)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = list(prof.key_averages())
+    total = sum(dev_time(e) for e in evs)
+    say(f"he: sbr_apply C=1024 T=8 (int16 out): {ms:.4f} ms per call (CUDA "
+        f"events, median of 10), device time in the trace {total / 1e3:.4f} "
+        f"ms over {sum(e.count for e in evs)} kernels, peak memory "
+        f"{peak:.2f} GiB; top ten device ops:")
+    for e in sorted(evs, key=dev_time, reverse=True)[:10]:
+        t = dev_time(e)
+        say(f"he:   {t / 1e3:8.4f} ms {100 * t / total:5.1f}% x{e.count:<3d} "
+            f"{e.key[:100]}")
+
+
+def he_stage_split(torch, dec, chunk, runs: int = 3):
+    """One HE chunk's stages on `dec`, medians of `runs`: the host phase
+    (native core parse, SBR parse and pack, plane compaction) on the host
+    clock; the core's and the SBR planes' copies to the device, the core
+    step, the SBR step and the copy back with CUDA events on their
+    streams.  Returns seconds (parse, h2d core, h2d sbr, core, sbr, d2h)."""
+    splits = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+        p0 = time.perf_counter()
+        parsed, dense, ctx = dec._he_host_phase(chunk, True)
+        parse_s = time.perf_counter() - p0
+        ev[0].record(dec._h2d_stream)
+        up = dec._upload_batch(parsed)
+        ev[1].record(dec._h2d_stream)
+        ev[2].record(dec._h2d_stream)
+        dev_dense = dec._upload_dense(dense, ctx["slot"])
+        ev[3].record(dec._h2d_stream)
+        ev[4].record(dec._compute_stream)
+        core = dec._device_step(up, out_int16=False)
+        ev[5].record(dec._compute_stream)
+        pcm2, seeds = dec._sbr_dispatch(core, dev_dense, ctx, True)
+        ev[6].record(dec._compute_stream)
+        torch.cuda.synchronize()
+        ev[7].record(dec._d2h_stream)
+        dec._sbr_download(pcm2, seeds, ctx, core)
+        ev[8].record(dec._d2h_stream)
+        torch.cuda.synchronize()
+        splits.append((parse_s, *(ev[a].elapsed_time(ev[b]) / 1e3 for a, b in
+                                  ((0, 1), (2, 3), (4, 5), (5, 6), (7, 8)))))
+    return tuple(float(v) for v in np.median(np.array(splits), axis=0))
+
+
+def he_host_profile(dec, chunk, top: int = 8) -> None:
+    """Where one HE-512 host phase spends its time: cProfile's functions
+    with the most own time over one call (after one unprofiled call; the
+    profiler's own cost inflates the many small Python calls, so the
+    shares are indicative)."""
+    import cProfile
+    import pstats
+    dec._he_host_phase(chunk, True)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    dec._he_host_phase(chunk, True, buf_slot=1)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    say(f"he-512: host phase under cProfile {wall:.3f} s; own time by "
+        "function:")
+    for (path, line, name), (_, ncalls, tottime, cumtime, _) in rows[:top]:
+        say(f"he-512:   {tottime:7.3f} s own, {cumtime:7.3f} s cum, "
+            f"x{ncalls:<6d} {pathlib.Path(path).name}:{line} {name}")
+
+
+def phase_he_serving(torch) -> dict:
+    """HE-512: 512 HE-AAC v1 stereo streams (C = 1024 slots; 22.05 kHz core,
+    44.1 kHz out) from he_serving_corpus(4, 4.0, 8), bench_he's
+    construction, chunk_frames=8, through decode_he_pipelined with int16
+    PCM after one warm-up chunk, HE_WINDOWS runs of HE_MAX_CHUNKS chunks,
+    each with a fresh decoder; launch counts set to 0 just before the runs
+    and read just after, peak device memory over the runs.  Then every
+    chunk again: the PCM against the same route's step, the core (the tail
+    kernel) against the plain core route; then one chunk's stage split and
+    a profile of one host phase."""
+    import aacjax_torch
+    from aacjax_torch.testing import assert_pcm_close, he_serving_corpus
+    t0 = time.perf_counter()
+    config, corpus = he_serving_corpus(4, 4.0, HE_CHUNK)
+    say(f"he-512: corpus of {len(corpus)} unique HE-AAC v1 stereo streams x "
+        f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
+    per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
+    n_chunks = min(len(corpus[0]) // HE_CHUNK, HE_MAX_CHUNKS)
+    chunks = [[p[k * HE_CHUNK:(k + 1) * HE_CHUNK] for p in per_stream]
+              for k in range(n_chunks)]
+
+    def decoder():
+        return aacjax_torch.BatchDecoder([config] * N_STREAMS,
+                                         chunk_frames=HE_CHUNK)
+    decoder().step_he_raw(chunks[0], out_int16=True)       # warm-up chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, runs = [], []
+    for _ in range(HE_WINDOWS):
+        dec = decoder()
+        t1 = time.perf_counter()
+        outs = list(dec.decode_he_pipelined(iter(chunks), out_int16=True))
+        walls.append(time.perf_counter() - t1)
+        check(len(outs) == n_chunks, "he-512: decode_he_pipelined lost chunks")
+        check(all(o.dtype == np.int16 for o in outs), "he-512: not int16")
+        check(not any(st.failed for st in dec.streams),
+              f"he-512: a stream failed: "
+              f"{[st.last_error for st in dec.streams if st.failed][:1]}")
+        check(not any(dec._sbr_np_sticky), "he-512: a slot went sticky")
+        runs.append(outs)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # every chunk again on two decoders from one host phase: the kernel
+    # route (must give the pipelined runs' PCM) and the plain core route
+    # (the tail kernel against its plain version on the HE core, f32 in and
+    # out, at this shape); the SBR output of the plain core is reported
+    ver, plain = decoder(), decoder()
+    plain._sbr_init()
+    worst, core_err, n_diff, n_all, n_tns = 0.0, 0.0, 0, 0, 0
+    amp_max, amp_diff = 0, 0
+    for k, chunk in enumerate(chunks):
+        parsed, dense, ctx = ver._he_host_phase(chunk, True)
+        check(bool(parsed["_spec_qsf"]), f"he-512: chunk {k} did not send "
+              "the q/sf spectra")
+        n_tns += bool(parsed["_has_tns"])
+        core_k = ver._device_step(ver._upload_batch(dict(parsed)),
+                                  out_int16=False)
+        core_p = plain._device_step(plain._upload_batch(dict(parsed)),
+                                    out_int16=False, use_pallas=False)
+        torch.cuda.synchronize()
+        core_err = max(core_err, assert_pcm_close(
+            core_k.cpu().numpy(), core_p.cpu().numpy(), False,
+            f"he-512 core chunk {k}"))
+        out_k = ver._sbr_stage(core_k, dense, ctx, out_int16=True).copy()
+        out_p = plain._sbr_stage(core_p, dense, ctx, out_int16=True).copy()
+        torch.cuda.synchronize()
+        for w, outs in enumerate(runs):
+            worst = max(worst, assert_pcm_close(outs[k], out_k, True,
+                                                f"he-512 run {w} chunk {k}"))
+            n_diff += int((outs[k] != out_k).sum())
+            n_all += out_k.size
+        d = np.abs(out_k.astype(np.int32) - out_p.astype(np.int32))
+        amp_max, amp_diff = max(amp_max, int(d.max())), amp_diff + int(
+            (d > 0).sum())
+    for kernel, want in (("tail", HE_WINDOWS * n_chunks),
+                         ("tns", HE_WINDOWS * n_tns)):
+        check(counts[kernel] == want, f"he-512: {counts[kernel]} {kernel} "
+              f"launches, expected {want}")
+    say(f"he-512: launches {counts} for {HE_WINDOWS} x {n_chunks} chunks "
+        f"({n_tns} with TNS); peak device memory {peak:.2f} GiB")
+    say(f"he-512: all {n_chunks} chunks of all {N_STREAMS} streams in all "
+        f"{HE_WINDOWS} runs equal the same route's step within 1 LSB on < 2% "
+        f"of samples (max delta {worst}, {n_diff / n_all:.6f} of samples "
+        f"differ); q/sf spectra and compact SBR planes uploaded; the core "
+        f"(tail kernel, f32) matches the plain core route within 5e-5 * "
+        f"max(1, max|ref|) (max delta {core_err:.4g}); through the SBR "
+        f"program the plain core's int16 PCM differs by up to {amp_max} LSB "
+        f"on {amp_diff / n_all * HE_WINDOWS:.6f} of samples (the gains "
+        f"divide by near-empty source bands: the corpus is low-passed at "
+        f"3.6 kHz)")
+    audio_s = N_STREAMS * n_chunks * HE_CHUNK * 2048 / 44100.0
+    rtx = [audio_s / w for w in walls]
+    say(f"he-512: he_aac_aggregate_realtime_x {float(np.median(rtx)):.1f} "
+        f"(median of {HE_WINDOWS} runs of {audio_s:.1f} s of audio at "
+        f"44.1 kHz; runs {[round(x, 1) for x in rtx]}, walls "
+        f"{[round(w, 3) for w in walls]} s)")
+    stages = he_stage_split(torch, decoder(), chunks[min(1, n_chunks - 1)])
+    he_host_profile(decoder(), chunks[0])
+    say(f"he-512: wall per chunk {[round(w / n_chunks, 4) for w in walls]} s; "
+        f"per-chunk stages ({audio_s / n_chunks:.1f} s of audio): host phase "
+        "(core parse, SBR parse and pack, compaction) {:.4f} s, h2d core "
+        "{:.4f} s, h2d SBR planes {:.4f} s, core compute {:.4f} s, SBR "
+        "compute {:.4f} s, d2h {:.4f} s".format(*stages))
+    return counts
+
+
+def phase_he_routes(torch) -> dict:
+    """HE-AAC v1 beyond the serving pass, each on the card against the same
+    call on the CPU: decode_adts on a stream whose core carries TNS, the
+    streaming AACDecoder, and step_he_raw over a mid-chunk SBR header
+    change (the slot replays that chunk on the float64 path and re-adopts
+    at the next boundary)."""
+    import aacjax_torch
+    from aacjax_torch import testing as TI
+    from aacjax_torch.host import sbr as S
+    stream = TI.he_stream(8, ch=2, tns=True)
+    reset_launches()
+    got, rate = aacjax_torch.decode_adts(stream, chunk_frames=4)
+    counts = read_launches()
+    check(counts["tns"] > 0, "he decode_adts did not run the TNS kernel")
+    want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4, device="cpu")
+    err = he_close(got, want, "he decode_adts", HE_ROUTE_TOL)
+    say(f"he routes: decode_adts, core with TNS: {got.shape} at {rate} Hz, "
+        f"launches {counts}, matches the CPU (max err {err:.4g} * max(1, "
+        f"max|ref|))")
+
+    def streaming(device):
+        d = aacjax_torch.AACDecoder(device=device)
+        d.feed(TI.he_stream(5, ch=1))
+        out = []
+        while (c := d.read_chunk()) is not None:
+            out.append(c)
+        return np.concatenate(out), d.output_sample_rate
+    (a, ra), (b, rb) = streaming("cuda"), streaming("cpu")
+    check(ra == rb == 44100, "he AACDecoder: output rate")
+    err = he_close(a, b, "he AACDecoder", HE_ROUTE_TOL)
+    say(f"he routes: AACDecoder {a.shape} at {ra} Hz matches the CPU (max "
+        f"err {err:.4g} * max(1, max|ref|))")
+
+    h2 = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0,
+                     limiter_gains=1)
+    payloads = TI.adts_payloads(TI.he_stream(8, ch=1, header_at={4: h2}))
+    config = TI.parse_asc(TI.adts.synthesize_cookie(
+        TI.adts.split_frames(TI.he_stream(1, ch=1))[0][0]))
+    decs = [aacjax_torch.BatchDecoder([config], chunk_frames=3, device=d)
+            for d in ("cuda", "cpu")]
+    errs = []
+    for k in range(3):
+        outs = [d.step_he_raw([payloads[3 * k:3 * k + 3]]) for d in decs]
+        check([d._sbr_np_sticky[0] for d in decs] == [k == 1] * 2,
+              f"he header change: chunk {k} sticky "
+              f"{[d._sbr_np_sticky[0] for d in decs]}")
+        errs.append(he_close(outs[0], outs[1], f"he header change {k}",
+                             HE_ROUTE_TOL))
+    check(decs[0]._slot_sbr_hdr[0] == h2, "he header change: row not h2")
+    say(f"he routes: step_he_raw over a mid-chunk header change (sticky in "
+        f"chunk 1 only, re-adopted) matches the CPU (max err "
+        f"{max(errs):.4g} * max(1, max|ref|))")
+    return counts
+
+
 def main() -> None:
     if not (REPO / "aacjax_torch" / "__init__.py").exists():
         fail("aacjax_torch is not next to chip_smoke.py")
@@ -818,10 +1162,12 @@ def main() -> None:
 
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)
+    phase_he_checks(torch, dev)
     # the launches of every main path, each counted from 0 over its own run
     launches = dict.fromkeys(KERNELS, 0)
     for phase in (phase_slice, phase_slice_tns, phase_slice_main,
-                  phase_slice_mc, phase_decode_adts):
+                  phase_slice_mc, phase_decode_adts, phase_he_serving,
+                  phase_he_routes):
         for kernel, n in phase(torch).items():
             launches[kernel] += n
     for kernel in KERNELS:

@@ -13,7 +13,7 @@ import aacjax
 from aacjax.host import native
 import aacjax_torch
 from aacjax_torch import testing as TI
-from aacjax_torch.host.asc import make_asc
+from aacjax_torch.host.asc import make_asc, parse_asc
 from aacjax_torch.testing import assert_pcm_close
 from aacjax_torch.testing import encoder as enc
 
@@ -247,19 +247,23 @@ def test_streaming_decoder_without_configuration():
 
 
 def test_he_content_raises_not_implemented_everywhere():
-    """HE-AAC is the only content the port refuses: implicit signalling
-    through decode_adts and the streaming decoder, explicit signalling
-    through a cookie and through LOAS."""
-    from test_sbr import make_he_stream
-    he = make_he_stream(ch=2, n_frames=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 items 8"):
-        aacjax_torch.decode_adts(he, device="cpu")
+    """HE-AAC v2 (Parametric Stereo, ROADMAP Queue 1 item 9) is the only
+    content the port refuses: implicit signalling through decode_adts and
+    the streaming decoder, explicit signalling through a cookie and through
+    LOAS.  It raises instead of decoding the stream as mono."""
+    ps = TI.he_ps_stream()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        aacjax_torch.decode_adts(ps, device="cpu")
     dec = aacjax_torch.AACDecoder(device="cpu")
-    dec.feed(he)
-    with pytest.raises(NotImplementedError, match="items 8"):
+    dec.feed(ps)
+    with pytest.raises(NotImplementedError, match="item 9"):
         dec.read_chunk()
-    explicit = make_asc(2, 6, 2, sbr=True)
+    raw = TI.adts_payloads(ps)
+    explicit = make_asc(2, 7, 1, sbr=True)
     dec = aacjax_torch.AACDecoder(cookie=explicit, device="cpu")
-    dec.feed(b"\x00" * 16)
-    with pytest.raises(NotImplementedError, match="items 8"):
+    dec.feed(b"".join(raw))
+    with pytest.raises(NotImplementedError, match="item 9"):
         dec.read_chunk()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        aacjax_torch.decode_loas(
+            enc.loas_stream(raw, parse_asc(explicit)), device="cpu")

@@ -571,3 +571,122 @@ def test_reset_and_state_on_card(dev):
     cpu.restore_state(dec.save_state())
     nxt = [c[4:6], b[6:8]]
     TI.assert_pcm_close(dec.step_raw(nxt), cpu.step_raw(nxt), False)
+
+
+# -- HE-AAC v1 (SBR) ---------------------------------------------------------
+# The SBR program and the QMF banks are PyTorch (the reference computes them
+# as plain XLA, with no Pallas kernel); on the card they are held to the
+# same calls on the CPU on the same inputs, f32 within 2e-4 * max(1,
+# max|ref|) (the envelope gains divide by the patched bands' energies),
+# int16 within 1 LSB on < 2% of the samples.  Whole HE decodes are held to
+# the CPU within 1e-3 * max(1, max|ref|): their cores also differ, by the
+# kernels' FFT IMDCT against the plain versions' dense product, and the same
+# division amplifies that.  The HE core runs the tail (or synthesis) and
+# TNS kernels.
+HE_ROUTE_TOL = 1e-3
+
+
+def _he_close(got, want, what="", tol=2e-4):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all(), what
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(1.0, float(np.abs(want).max())), (what, err)
+
+
+def test_qmf_on_card_matches_cpu(dev):
+    """The serving shape: B = 1024 channels, S = 256 slots (8 frames)."""
+    from aacjax_torch.kernels import qmf
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((1024, 32 * 256)).astype(
+        np.float32) * 3000)
+    h = torch.from_numpy(rng.standard_normal((1024, 288)).astype(
+        np.float32) * 3000)
+    want = qmf.analysis(x, h)
+    got = qmf.analysis(x.to(dev), h.to(dev))
+    for g, w in zip(got, want):
+        _he_close(g.cpu(), w, "analysis")
+    xr, xi = (torch.from_numpy(rng.standard_normal((1024, 256, 64)).astype(
+        np.float32) * 300) for _ in range(2))
+    vh = torch.from_numpy(rng.standard_normal((1024, 9, 128)).astype(
+        np.float32) * 30)
+    want = qmf.synthesis(xr, xi, vh)
+    got = qmf.synthesis(xr.to(dev), xi.to(dev), vh.to(dev))
+    for g, w in zip(got, want):
+        _he_close(g.cpu(), w, "synthesis")
+
+
+@pytest.mark.parametrize("out_int16", [False, True])
+def test_sbr_apply_on_card_matches_cpu(dev, out_int16):
+    """One chunk of the HE serving corpus at the serving shape (512 stereo
+    streams, C = 1024, T = 8), compact planes."""
+    from aacjax_torch.kernels import sbr_batch as SB
+    core, planes, cfg, state = TI.sbr_apply_inputs(512, 8, dev, compact=True)
+    got, got_state = SB.sbr_apply(core, planes, state, cfg, out_int16)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    want, want_state = SB.sbr_apply(core.cpu(), cpu(planes), cpu(state),
+                                    cpu(cfg), out_int16)
+    if out_int16:
+        TI.assert_pcm_close(got.cpu(), want, True)
+    else:
+        _he_close(got.cpu(), want, "pcm")
+    for k in want_state:
+        _he_close(got_state[k].cpu(), want_state[k], k)
+
+
+def test_decode_he_pipelined_on_card_matches_cpu(dev):
+    """16 HE streams, 2 chunks of 8: the q/sf core through the tail kernel
+    once a chunk, then the SBR program.  int16 PCM equals step_he_raw's on
+    the card; f32 PCM matches the CPU."""
+    config, chunk = TI.he_chunk(16, 16, seconds=1.0)
+    chunks = [[p[:8] for p in chunk], [p[8:] for p in chunk]]
+
+    def decoder(device):
+        return aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
+                                         device=device)
+    before = tail.launches
+    got = list(decoder(dev).decode_he_pipelined(iter(chunks), out_int16=True))
+    assert tail.launches == before + 2
+    step = decoder(dev)
+    for g, c in zip(got, chunks, strict=True):
+        TI.assert_pcm_close(g, step.step_he_raw(c, out_int16=True), True)
+    got = decoder(dev).decode_he_pipelined(iter(chunks), out_int16=False)
+    want = decoder("cpu").decode_he_pipelined(iter(chunks), out_int16=False)
+    for g, w in zip(got, want, strict=True):
+        _he_close(g, w, "pipelined", HE_ROUTE_TOL)
+
+
+def test_he_routes_on_card_match_cpu(dev):
+    """decode_adts on an HE stream whose core carries TNS, the streaming
+    decoder, and step_he_raw over a mid-chunk SBR header change (the slot
+    replays one chunk on the float64 path and re-adopts)."""
+    from aacjax_torch.host import sbr as S
+    stream = TI.he_stream(8, ch=2, tns=True)
+    n0 = tns.launches
+    got, rate = aacjax_torch.decode_adts(stream, chunk_frames=4, device=dev)
+    assert tns.launches > n0 and rate == 44100
+    want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4, device="cpu")
+    _he_close(got, want, "decode_adts", HE_ROUTE_TOL)
+
+    def streaming(device):
+        d = aacjax_torch.AACDecoder(device=device)
+        d.feed(TI.he_stream(5, ch=1))
+        out = []
+        while (c := d.read_chunk()) is not None:
+            out.append(c)
+        return np.concatenate(out)
+    _he_close(streaming(dev), streaming("cpu"), "AACDecoder", HE_ROUTE_TOL)
+
+    h2 = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0,
+                     limiter_gains=1)
+    payloads = TI.adts_payloads(TI.he_stream(8, ch=1, header_at={4: h2}))
+    config = TI.parse_asc(TI.adts.synthesize_cookie(
+        TI.adts.split_frames(TI.he_stream(1, ch=1))[0][0]))
+    decs = [aacjax_torch.BatchDecoder([config], chunk_frames=3, device=d)
+            for d in (dev, "cpu")]
+    for k in range(3):
+        outs = [d.step_he_raw([payloads[3 * k:3 * k + 3]]) for d in decs]
+        assert [d._sbr_np_sticky[0] for d in decs] == [k == 1] * 2, k
+        _he_close(outs[0], outs[1], f"header change chunk {k}",
+                  HE_ROUTE_TOL)

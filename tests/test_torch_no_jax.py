@@ -10,6 +10,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "host/sbr.py", "host/sbr_tables.npz", "host/ps.py",
           "host/ps_tables.npz", "host/native.py", "host/aac_960_tables.npz",
           "host/latm.py", "host/ltp_batch.py", "host/refdec.py",
+          "host/sbr_pack.py", "host/sbr_decode.py",
           "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
           "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
@@ -60,6 +62,14 @@ assert eld.shape == (4 * 512, 2) and np.isfinite(eld).all()
 dec = aacjax_torch.AACDecoder(device="cpu")
 dec.feed(loas)
 assert dec.read_chunk().shape == (2 * 512,)
+# HE-AAC v1: the batched SBR program, and the streaming decoder's SBR path
+he = TI.he_stream(4, ch=2)
+pcm, rate = aacjax_torch.decode_adts(he, chunk_frames=2, device="cpu")
+assert rate == 44100 and pcm.shape == (5 * 2048, 2)
+assert np.isfinite(pcm).all() and np.abs(pcm).max() > 0.1
+dec = aacjax_torch.AACDecoder(device="cpu")
+dec.feed(he)
+assert dec.read_chunk().shape == (2 * 2048,) and dec.output_sample_rate == 44100
 loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
 assert loaded == [], loaded
 print("ok", round(snr, 1))
@@ -127,6 +137,23 @@ def test_port_copy_matches_original(rel):
         assert copy.read_text() == want
     else:
         assert copy.read_bytes() == orig.read_bytes()
+
+
+def test_qmf_numpy_helpers_match_reference():
+    """The port's QMF module keeps the reference's numpy constants value for
+    value: its copy of host/sbr_decode.py reads them."""
+    from aacjax.kernels import qmf as jq
+    from aacjax_torch.kernels import qmf as tq
+    for name in ("prototype", "_analysis_consts", "_analysis_device_consts",
+                 "_synthesis_consts"):
+        got, want = getattr(tq, name)(), getattr(jq, name)()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w), name
+    for name in ("ANA_BANDS", "SYN_BANDS", "ANA_HIST", "SYN_HIST"):
+        assert getattr(tq, name) == getattr(jq, name), name
 
 
 def test_make_corpus_matches_bench():

@@ -157,19 +157,19 @@ def test_state_handover_from_jax():
 
 
 def test_he_stream_not_implemented():
-    from test_sbr import make_he_stream
+    """HE-AAC v2 (ps_data) raises, naming its ROADMAP item."""
+    from aacjax_torch.testing import he_ps_stream
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aacjax_torch.decode_adts(make_he_stream(ch=2, n_frames=2),
-                                 device="cpu")
+        aacjax_torch.decode_adts(he_ps_stream(), device="cpu")
 
 
 def test_restore_rejects_non_core_state():
-    """The SBR/PS half of a saved state is not ported; the predictor state
+    """The PS half of a saved state is not ported; the predictor state
     and a decoder on the python route are."""
     configs, _ = make_lc_payload_chunks(n_streams=1, chunk_frames=4)
     dec = aacjax_torch.BatchDecoder(configs, chunk_frames=4, device="cpu")
     state = dec.save_state()
-    state["sbr"] = {}
+    state["sbr"] = {"ps_enabled": True}
     with pytest.raises(NotImplementedError, match="item"):
         dec.restore_state(state)
     assert torch.equal(dec.overlap, torch.zeros_like(dec.overlap))
