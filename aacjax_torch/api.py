@@ -1,13 +1,11 @@
 """Public API: `decode_adts`, `decode_loas`, the streaming `AACDecoder`.
 
-Counterpart of `aacjax/api.py` without its Parametric Stereo half: every
-stream the reference decodes without PS decodes here, on `device` ("cuda"
-unless the caller passes "cpu") -- AAC-LC, Main, LTP, ER-LC, LD and ELD,
-1024- and 960-sample frames (512 and 480 for LD / ELD), mono through 7.1
-with coupling channels, HE-AAC v1 (SBR, at twice the core rate), ADTS
-frames with one or several raw_data_blocks, and LOAS/LATM.  HE-AAC v2
-(Parametric Stereo) raises NotImplementedError naming the ROADMAP item
-that ports it.
+Counterpart of `aacjax/api.py`: every stream the reference decodes decodes
+here, on `device` ("cuda" unless the caller passes "cpu") -- AAC-LC, Main,
+LTP, ER-LC, LD and ELD, 1024- and 960-sample frames (512 and 480 for LD /
+ELD), mono through 7.1 with coupling channels, HE-AAC v1 (SBR, at twice the
+core rate) and v2 (SBR + Parametric Stereo: a mono stream decoded as
+stereo), ADTS frames with one or several raw_data_blocks, and LOAS/LATM.
 """
 from __future__ import annotations
 
@@ -19,7 +17,7 @@ from aacjax_torch.host.asc import StreamConfig, UnsupportedError, parse_asc
 from aacjax_torch.host.bitio import (BitReader, BitstreamError,
                                      BitstreamUnderflow)
 from aacjax_torch.host.syntax import decode_frame
-from aacjax_torch.runtime.batch import (ELD_PROFILE, HE_NEXT, LTP_PROFILE,
+from aacjax_torch.runtime.batch import (ELD_PROFILE, LTP_PROFILE,
                                         MAIN_PROFILE, BatchDecoder)
 
 CODEC_IDS = ('mp4a', 'aac ')
@@ -75,7 +73,8 @@ class AACDecoder:
     signalled in the ASC, or found on the first frame) gets its high band
     on the host's float64 SBR path (host/sbr_decode.py), the reference's
     streaming route, and read_chunk returns 2 * frame_length samples per
-    channel.  ps_data raises NotImplementedError."""
+    channel; a mono stream whose SBR extensions carry ps_data (HE-AAC v2)
+    becomes stereo there (host/ps_decode.py) from its first ps_data on."""
 
     floating_point = True
 
@@ -96,6 +95,9 @@ class AACDecoder:
         self._sbr_mode: bool | None = None
         self._sbr_ctx = None
         self._sbr_procs: list = []
+        # Parametric Stereo: (PSProc, right synthesis history) once a mono
+        # stream's first ps_data arrives
+        self._ps_state: tuple | None = None
         self._refdec = None
         self._transport: str | None = None
         # protected multi-raw_data_block ADTS (13818-7 6.2): the parser
@@ -214,6 +216,7 @@ class AACDecoder:
         self._adts_state = {}
         self._sbr_ctx = None
         self._sbr_procs = []
+        self._ps_state = None
         self._refdec = None
         self._sbr_mode = (True if (self.config is not None
                                    and self.config.sbr) else None)
@@ -299,9 +302,14 @@ class AACDecoder:
     def _apply_sbr(self, frame, pcm: np.ndarray) -> np.ndarray:
         """HE-AAC tail: upsample every core channel 2x, rebuilding the high
         band for the elements that carried an SBR payload (float64, the
-        reference's per-channel path).  pcm [frame_length, channels]."""
+        reference's per-channel path).  A mono element whose SBR extension
+        carries ps_data becomes stereo: its adjusted QMF planes go through
+        the PS stage and two synthesis banks.  pcm [frame_length,
+        channels]."""
         from aacjax_torch.host import sbr as sbrmod
+        from aacjax_torch.host.ps_decode import PSProc, apply_ps
         from aacjax_torch.host.sbr_decode import (SBRChannelProc,
+                                                  _qmf_synthesis_np,
                                                   process_channel,
                                                   process_passthrough)
         from aacjax_torch.host.syntax import CPEData
@@ -310,10 +318,27 @@ class AACDecoder:
         for elem in frame.elements:
             nch = 2 if isinstance(elem, CPEData) else 1
             sf = getattr(elem, "sbr", None)
-            if getattr(sf, "ps", None) is not None:
-                raise NotImplementedError(
-                    f"{HE_NEXT}: the stream carries ps_data")
             eq = sbrmod.dequant(sf) if sf is not None else None
+            ps = getattr(sf, "ps", None) if sf is not None else None
+            if nch == 1 and sf is not None and (
+                    ps is not None or self._ps_state is not None):
+                while len(self._sbr_procs) <= ch_idx:
+                    self._sbr_procs.append(SBRChannelProc())
+                proc = self._sbr_procs[ch_idx]
+                if self._ps_state is None:
+                    self._ps_state = (PSProc(), np.zeros_like(proc.v_hist))
+                psproc, v_r = self._ps_state
+                core = np.asarray(pcm[:, ch_idx], np.float64)
+                X = process_channel(proc, core, sf, 0, eq[0], return_x=True)
+                xl, xr = apply_ps(psproc, X, ps)
+                left, proc.v_hist = _qmf_synthesis_np(xl, proc.v_hist)
+                right, v_r = _qmf_synthesis_np(xr, v_r)
+                self._ps_state = (psproc, v_r)
+                scale = np.float32(1.0 / 32768.0)
+                outs.append(left.astype(np.float32) * scale)
+                outs.append(right.astype(np.float32) * scale)
+                ch_idx += 1
+                continue
             for c in range(nch):
                 while len(self._sbr_procs) <= ch_idx:
                     self._sbr_procs.append(SBRChannelProc())
@@ -337,9 +362,12 @@ class AACDecoder:
 
     @property
     def output_channels(self) -> int:
-        """Channel count of read_chunk output."""
+        """Channel count of read_chunk output (2 for a mono HE-AAC v2
+        stream once ps_data has been seen)."""
         if self.config is None:
             raise UnsupportedError("no configuration")
+        if self._ps_state is not None and self.config.channels == 1:
+            return 2
         return self.config.channels
 
 
@@ -406,8 +434,6 @@ def _read_all_chunks(dec: AACDecoder, on_error: str, resync: bool):
     while True:
         try:
             chunk = dec.read_chunk()
-        except NotImplementedError:
-            raise
         except Exception:  # noqa: BLE001 — concealment boundary
             if on_error == "raise":
                 raise
@@ -465,16 +491,18 @@ def _decode_raw_payloads(config: StreamConfig, asc_raw: bytes,
 
 
 def _decode_he(data: bytes, frames, config, chunk_frames: int,
-               cce_slots: int, on_error: str,
-               device) -> tuple[np.ndarray, int]:
-    """HE-AAC v1 with one raw_data_block a frame: BatchDecoder.step_he_raw
-    chunk by chunk (the core step on `device`, then the batched SBR program
-    on the device-resident core PCM), exact spectra and planes, f32 PCM at
-    twice the core rate."""
+               cce_slots: int, on_error: str, device,
+               has_ps: bool = False) -> tuple[np.ndarray, int]:
+    """HE-AAC with one raw_data_block a frame: BatchDecoder.step_he_raw
+    chunk by chunk (the core step on `device`, then the batched SBR, or
+    SBR + PS, program on the device-resident core PCM), exact spectra and
+    planes, f32 PCM at twice the core rate.  A mono stream with PS takes a
+    spare slot for its right channel and decodes as stereo."""
     dec = BatchDecoder([config], chunk_frames=chunk_frames,
-                       cce_slots=cce_slots, device=device)
+                       cce_slots=max(cce_slots, 1) if has_ps else cce_slots,
+                       device=device)
     payloads = [data[s:e] for _, s, e in frames]
-    nch = config.channels
+    nch = 2 if has_ps and config.channels == 1 else config.channels
     out = []
     for i in range(0, len(payloads), chunk_frames):
         group = payloads[i:i + chunk_frames]
@@ -598,8 +626,8 @@ def decode_adts(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
     v1 (SBR, found by a probe of the first frame) decodes at twice the core
     rate: through BatchDecoder.step_he_raw (the core on the card, then the
     batched SBR program), or the streaming decoder for frames of several
-    raw_data_blocks.  HE-AAC v2 (Parametric Stereo) raises
-    NotImplementedError.
+    raw_data_blocks.  HE-AAC v2 (Parametric Stereo in a mono stream's SBR
+    extensions) decodes the same way as stereo.
     """
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error: {on_error}")
@@ -623,12 +651,10 @@ def decode_adts(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
     if config.profile == LTP_PROFILE:
         return _decode_ltp(data, frames, config, on_error, drc_scale)
     has_sbr, has_ps = _probe_sbr_ps(data, frames, config)
-    if has_ps:
-        raise NotImplementedError(f"{HE_NEXT}: the stream carries ps_data")
     multi_rdb = any(h.num_frames > 1 for h, _, _ in frames)
     if has_sbr and not multi_rdb:
         return _decode_he(data, frames, config, chunk_frames, cce_slots,
-                          on_error, device)
+                          on_error, device, has_ps)
     if has_sbr:
         dec = AACDecoder(cookie=adts.synthesize_cookie(header),
                          cce_slots=max(cce_slots, 1), device=device)

@@ -1,14 +1,14 @@
 """Batched multi-stream AAC decode runtime on one device.
 
-Counterpart of `aacjax/runtime/batch.py` `BatchDecoder` without its
-Parametric Stereo half: AAC-LC, Main, LTP, ER-LC, LD and ELD streams at
-1024, 960, 512 or 480 samples a frame, with coupling channels, and HE-AAC
-v1 (SBR).  It owns the per-stream decoder state (the per-channel overlap,
-[C, F] or [C, 3F] for ELD, the Main-profile predictor state [C, 672, 6] and
-the SBR filterbank FIFOs, all kept on the device between chunks, and the
-per-channel previous window shape and SBR sequential state used by the
-host) and drives host parse -> host-to-device copy -> device step -> int16
-or f32 PCM back to the host.
+Counterpart of `aacjax/runtime/batch.py` `BatchDecoder`: AAC-LC, Main, LTP,
+ER-LC, LD and ELD streams at 1024, 960, 512 or 480 samples a frame, with
+coupling channels, HE-AAC v1 (SBR) and HE-AAC v2 (SBR + Parametric Stereo).
+It owns the per-stream decoder state (the per-channel overlap, [C, F] or
+[C, 3F] for ELD, the Main-profile predictor state [C, 672, 6], the SBR
+filterbank FIFOs and the PS decorrelator and synthesis state, all kept on
+the device between chunks, and the per-channel previous window shape and
+SBR / PS sequential state used by the host) and drives host parse ->
+host-to-device copy -> device step -> int16 or f32 PCM back to the host.
 
 Three parse routes, as in the reference: the native parser (one C call per
 chunk, then `decode_spec_step`); the python parser and packer
@@ -29,9 +29,14 @@ the core and records where each frame's SBR extension sits; Python parses
 those ~30-byte extensions (cached by payload), the host packs the dense
 per-slot planes (host/sbr_pack.py), the core step runs on the card, and
 then one batched SBR program (kernels/sbr_batch.py) runs on the
-device-resident core PCM.  A slot whose SBR header changes mid-chunk
-replays that chunk on the float64 per-channel path (host/sbr_decode.py)
-and rejoins the batched path at the next chunk boundary.
+device-resident core PCM.  A mono stream whose SBR extensions carry
+ps_data (HE-AAC v2) needs one spare slot (cce_slots >= 1): its SBR planes
+go on through the Parametric Stereo program (kernels/ps_batch.py, packed
+by host/ps_pack.py), which writes the left channel to the stream's slot and
+the right one to the spare.  A slot whose SBR header changes mid-chunk, or
+whose PS band scheme flips with state carried, replays that chunk on the
+float64 per-channel path (host/sbr_decode.py, host/ps_decode.py) and
+rejoins the batched path at the next chunk boundary.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from aacjax_torch.host import native
+from aacjax_torch.host import ps_pack as PP
 from aacjax_torch.host import sbr as sbrmod
 from aacjax_torch.host import sbr_decode as SD
 from aacjax_torch.host import sbr_pack as SP
@@ -52,8 +58,9 @@ from aacjax_torch.host.bitio import BitReader
 from aacjax_torch.host.syntax import CPEData, Frame, SCEData, decode_frame
 from aacjax_torch.kernels import pipeline as P
 from aacjax_torch.kernels import pred
+from aacjax_torch.kernels import ps_batch as PB
 from aacjax_torch.kernels import sbr_batch as SB
-from aacjax_torch.runtime.pack import pack_frames
+from aacjax_torch.runtime.pack import SlotOverflowError, pack_frames
 from aacjax_torch.runtime.stats import DecodeStats
 
 FRAME = 1024
@@ -101,8 +108,28 @@ _SBR_COMPACT_FIELDS = {
 }
 # the per-slot device state a sticky slot's float64 replay inherits
 _SEED_KEYS = ("x_hist", "v_hist", "xlow_r", "xlow_i", "ytail_r", "ytail_i")
-HE_NEXT = ("HE-AAC v2 (Parametric Stereo) is not ported yet (ROADMAP "
-           "Queue 1 item 9)")
+_PS_SEED_KEYS = ("v_l", "v_r", "delay_r", "delay_i", "ap_r", "ap_i", "peak",
+                 "psmooth", "pdiff", "hist4_r", "hist4_i")
+# ps_pack's planes as they travel: name -> (dtype, trailing dims) after a
+# leading [C, T] ("chunk") or [C] ("slot"); the indices fit the narrow types
+# (HA rows -1..45, ICC 0..7, phase indices 0..511, knots 0..5)
+_PS_FIELDS = {
+    "ps_ha": (torch.int8, (6, 34), "chunk"),
+    "ps_icc": (torch.int8, (6, 34), "chunk"),
+    "ps_opd": (torch.int16, (6, 17), "chunk"),
+    "ps_ipd": (torch.int16, (6, 17), "chunk"),
+    "ps_h0_r": (torch.float32, (34, 4), "chunk"),
+    "ps_h0_i": (torch.float32, (34, 4), "chunk"),
+    "ps_hslot": (torch.int8, (6,), "chunk"),
+    "ps_knot_lo": (torch.int8, (32,), "chunk"),
+    "ps_knot_hi": (torch.int8, (32,), "chunk"),
+    "ps_alpha": (torch.float32, (32,), "chunk"),
+    "ps_has": (torch.float32, (), "chunk"),
+    "ps_himag": (torch.float32, (4, 34, 4), "slot"),
+    "out_src": (torch.int32, (), "slot"),
+    "out_role": (torch.int32, (), "slot"),
+    "slot_is34": (torch.float32, (), "slot"),
+}
 
 
 @dataclass
@@ -213,6 +240,13 @@ class BatchDecoder:
         if self.use_native and any(cfg.sbr or cfg.sample_rate <= 24000
                                    for cfg in configs):
             self._he_buffers()
+        # the same for the Parametric Stereo planes, made here when a mono
+        # stream has the spare slot that PS needs
+        self._ps_bufs: list[dict] | None = None
+        self._ps_h2d_done: list[torch.cuda.Event | None] = [None, None]
+        if self._sbr_bufs is not None and cce_slots >= 1 and any(
+                cfg.channels == 1 for cfg in configs):
+            self._ps_buffers()
         self._pending_steps: dict[int, tuple] = {}
         # a reset asked for while a pipelined generator runs waits for the
         # next chunk boundary (request_reset)
@@ -267,6 +301,16 @@ class BatchDecoder:
         self._sbr_bufs = [
             {name: self._pinned((self.C, self.T) + dims, dtype)
              for name, (dtype, dims) in _SBR_COMPACT_FIELDS.items()}
+            for _ in range(2)]
+
+    def _ps_buffers(self) -> None:
+        """Make the two slots of pinned PS-plane buffers (once)."""
+        if self._ps_bufs is not None or not self._cuda:
+            return
+        lead = {"chunk": (self.C, self.T), "slot": (self.C,)}
+        self._ps_bufs = [
+            {name: self._pinned(lead[kind] + dims, dtype)
+             for name, (dtype, dims, kind) in _PS_FIELDS.items()}
             for _ in range(2)]
 
     def _on_compute(self):
@@ -736,8 +780,8 @@ class BatchDecoder:
         """The SBR state, made at the first HE chunk: per stream the SBR
         parse context, per slot the host's sequential state, the float64
         replay processors of sticky slots, the per-slot header cfg planes
-        and the device state.  The Parametric Stereo fields keep their
-        empty values (ROADMAP Queue 1 item 9)."""
+        and the device state; and the Parametric Stereo fields, which stay
+        empty until a slot's first ps_data."""
         if hasattr(self, "_sbr_ctxs"):
             return
         self._sbr_ctxs = [
@@ -766,10 +810,18 @@ class BatchDecoder:
         # parsed context-free SBR payloads, shared across streams: serving
         # fleets repeat identical payloads
         self._sbr_parse_cache: dict = {}
+        # Parametric Stereo: per slot its band mode (None until its first
+        # ps_data; 20- and 34-band slots mix: a batch of one mode runs the
+        # single-mode program, a mixed one the dual program), the chunk's
+        # packed planes, the host's sequential pack state, the slot that
+        # takes the right channel, the device state per band mode (made at
+        # first use) with its freshness (a set that sat out a chunk while
+        # the other mode ran re-seeds before reuse) and the row seeds of
+        # re-adopted slots, and the float64 replay state of sticky slots
         self._ps_enabled = False
         self._ps_slot_is34: list = [None] * self.C
         self._ps_dense = None
-        self._ps_pack_states: list = [None] * self.C
+        self._ps_pack_states = [PP.PSPackState() for _ in range(self.C)]
         self._ps_pair = [-1] * self.C
         self._ps_dev_states: dict = {False: None, True: None}
         self._ps_fresh: dict = {False: False, True: False}
@@ -777,8 +829,59 @@ class BatchDecoder:
         self._ps_np: list = [None] * self.C
 
     def _ps_engage(self, slot: int) -> None:
-        raise NotImplementedError(
-            f"{HE_NEXT}: slot {slot} carries ps_data")
+        """First ps_data on `slot`: pick its pair slot (the spare slot after
+        it, which takes the right channel), make the chunk's PS planes and
+        switch the chunk to the SBR + PS program."""
+        if self._ps_pair[slot] < 0:
+            st = next(s for s in self.streams
+                      if s.base_slot <= slot < s.base_slot + s.n_slots)
+            pair = slot + 1
+            if pair >= st.base_slot + st.n_slots:
+                raise SlotOverflowError(
+                    "HE-AAC v2 (Parametric Stereo) emits 2 channels from a "
+                    "mono stream and needs a spare slot; raise cce_slots "
+                    "(BatchDecoder/decode_adts) to at least 1")
+            self._ps_pair[slot] = pair
+        if self._ps_dense is None:
+            self._ps_dense = PP.alloc_ps_dense(self.C, self.T)
+        self._ps_enabled = True
+
+    def _ps_mode_begin(self, modes: list, prev_state: dict) -> None:
+        """Make sure a device PS state set exists and is fresh for every
+        band mode that runs this chunk, then apply the pending row seeds of
+        re-adopted slots.  The planes that do not depend on the mode (the
+        two synthesis histories and the hybrid FIR history) come from the
+        other set when it is fresh (the program that ran owned the
+        synthesis of every slot, PS or not), or, before any PS program
+        ran, the left synthesis continues the mono path's v_hist.  A set
+        that sat out re-seeds those planes the same way and zeroes the
+        rest; the returning slots then overlay their own rows.  Runs on the
+        compute stream."""
+        indep = ("v_l", "v_r", "hist4_r", "hist4_i")
+        for m in modes:
+            other = self._ps_dev_states[not m]
+            src = other if self._ps_fresh[not m] else None
+            st0 = self._ps_dev_states[m]
+            if st0 is None:
+                st0 = PB.ps_state_init(self.C, m, self.device)
+                if src is not None:
+                    for k in indep:
+                        st0[k] = src[k].clone()
+                else:
+                    st0["v_l"] = prev_state["v_hist"].clone()
+            elif not self._ps_fresh[m]:
+                st0 = {k: (src[k].clone() if src is not None and k in indep
+                           else torch.zeros_like(v)) for k, v in st0.items()}
+            for s, rows in self._ps_row_seeds[m].items():
+                for k, row in rows.items():
+                    st0[k][s] = torch.as_tensor(np.asarray(row, np.float32),
+                                                device=self.device)
+            self._ps_row_seeds[m] = {}
+            self._ps_dev_states[m] = st0
+            self._ps_fresh[m] = True
+        for m in (False, True):
+            if m not in modes:
+                self._ps_fresh[m] = False
 
     def _sbr_chunk_begin(self, payloads_per_stream) -> None:
         """Per-chunk bookkeeping for the float64 replay: frame counts per
@@ -793,6 +896,8 @@ class BatchDecoder:
         # slots that packed an SBR frame this chunk: their cfg row is frozen
         # for the chunk
         self._sbr_packed_chunk = [False] * self.C
+        if self._ps_dense is not None:
+            self._ps_dense = PP.alloc_ps_dense(self.C, self.T)
 
         def clone(hs):
             return SP.SBRHostState(
@@ -809,15 +914,30 @@ class BatchDecoder:
             None if self._sbr_np_sticky[s] else
             clone(self._sbr_host_states[s]) for s in range(self.C)]
 
+        def clone_ps(pst):
+            return PP.PSPackState(
+                h_prev=pst.h_prev.copy(),
+                ipd_hist=pst.ipd_hist.copy(), opd_hist=pst.opd_hist.copy(),
+                ps_prev=pst.ps_prev, is34_prev=pst.is34_prev,
+                h_slot_imag=pst.h_slot_imag.copy())
+
+        # a slot that turns sticky mid-chunk seeds its float64 PS replay
+        # from the pack state before the chunk
+        self._ps_pack_snap = (
+            None if not self._ps_enabled else
+            [None if self._sbr_np_sticky[s] else
+             clone_ps(self._ps_pack_states[s]) for s in range(self.C)])
+
     def _sbr_pack_payload(self, dense, sf, slot: int, nch: int,
                           t: int) -> None:
-        """Pack one parsed SBRFrame into the dense planes.  A header change
+        """Pack one parsed SBRFrame into the dense planes, and a mono
+        element's PS parameters into the PS planes.  A header change
         re-renders the slot's cfg row when the slot has packed no SBR frame
         this chunk; mid-chunk, the slot replays the chunk on the float64
-        path and re-adopts at the next boundary.  VAR-class envelope
-        overhang runs on the device (the program's Y carry)."""
-        if nch == 1 and getattr(sf, "ps", None) is not None:
-            self._ps_engage(slot)
+        path and re-adopts at the next boundary.  So does a PS band-scheme
+        flip with state carried.  VAR-class envelope overhang runs on the
+        device (the program's Y carry)."""
+        ps = getattr(sf, "ps", None) if nch == 1 else None
         eq = sbrmod.dequant(sf)
         key = (sf.header, id(sf.tables))
         for c in range(nch):
@@ -832,6 +952,18 @@ class BatchDecoder:
                 SP.pack_channel_frame(dense, s, t, self._sbr_host_states[s],
                                       sf, c, eq[c])
                 self._sbr_packed_chunk[s] = True
+        if nch == 1 and (ps is not None
+                         or self._ps_pack_states[slot].ps_prev is not None):
+            self._ps_engage(slot)
+            if not self._sbr_np_sticky[slot]:
+                if not PP.pack_ps_frame(self._ps_dense, slot, t,
+                                        self._ps_pack_states[slot], ps):
+                    # a band-scheme flip with carried state: the remap of
+                    # the carry runs on the float64 path for this chunk
+                    self._sbr_np_sticky[slot] = True
+                else:
+                    self._ps_slot_is34[slot] = \
+                        self._ps_pack_states[slot].is34_prev
 
     def _set_cfg_row(self, s: int, hdr, tbl) -> None:
         """Render slot `s`'s header statics into its cfg-plane row; the
@@ -868,17 +1000,77 @@ class BatchDecoder:
         can run on a worker while the next chunk parses (the captured
         objects are made anew per chunk; the sticky set and the cfg planes
         are frozen here).  Slots with no SBR payload yet keep a zeroed cfg
-        row (has_sbr = 0 routes them through the upsampling branch)."""
+        row (has_sbr = 0 routes them through the upsampling branch).  With
+        PS, the live band modes of the chunk (one: the single-mode program;
+        two: the dual program), the per-slot modes and pairs, and the PS
+        planes staged for the copy to the device."""
         if self._sbr_cfg_snap is None:
             self._sbr_cfg_snap = {k: v.copy()
                                   for k, v in self._sbr_cfg_planes.items()}
-        return dict(
+        ctx = dict(
             nframes=self._chunk_nframes,
             records=self._chunk_sbr_records,
             host_snap=self._host_state_snap,
             sticky=[s for s in range(self.C)
                     if self._sbr_np_sticky[s] and self._chunk_nframes[s]],
-            cfg=self._sbr_cfg_snap, slot=buf_slot)
+            cfg=self._sbr_cfg_snap, slot=buf_slot,
+            ps_enabled=self._ps_enabled, ps_snap=self._ps_pack_snap,
+            ps_slot_modes=list(self._ps_slot_is34),
+            ps_pair=list(self._ps_pair))
+        if self._ps_enabled:
+            ctx["ps_modes"] = sorted({
+                bool(self._ps_slot_is34[s]) for s in range(self.C)
+                if self._ps_slot_is34[s] is not None
+                and not self._sbr_np_sticky[s] and self._ps_pair[s] >= 0})
+            ctx["ps_planes"] = self._stage_ps(ctx, buf_slot)
+        return ctx
+
+    def _stage_ps(self, ctx: dict, buf_slot: int) -> dict:
+        """The chunk's PS planes (ps_pack.dense_to_dict with the output
+        routing and, for a mixed chunk, the per-slot mode mask) as host
+        tensors for the copy to the device: on CUDA in the pinned buffers
+        of `buf_slot`, in the narrow types of _PS_FIELDS."""
+        out_src = np.arange(self.C, dtype=np.int32)
+        out_role = np.zeros(self.C, np.int32)
+        for s, p in enumerate(ctx["ps_pair"]):
+            if p >= 0:
+                out_src[p] = s
+                out_role[p] = 1
+        planes = PP.dense_to_dict(self._ps_dense,
+                                  PP.himag_plane(self._ps_pack_states, self.C),
+                                  out_src, out_role)
+        if len(ctx["ps_modes"]) == 2:
+            planes["slot_is34"] = np.array(
+                [1.0 if m else 0.0 for m in ctx["ps_slot_modes"]], np.float32)
+        if not self._cuda:
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in planes.items()}
+        self._ps_buffers()
+        ev = self._ps_h2d_done[buf_slot]
+        if ev is not None:
+            ev.synchronize()   # the last copy out of these buffers landed
+        bufs = self._ps_bufs[buf_slot]
+        for k, v in planes.items():
+            np.copyto(bufs[k].numpy(), v, casting="unsafe")
+        return {k: bufs[k] for k in planes}
+
+    def _upload_ps(self, ctx: dict) -> dict:
+        """Copy the staged PS planes to the device on the copy stream; the
+        compute stream, and the next staging into the same buffers, wait
+        for it."""
+        planes = ctx["ps_planes"]
+        if not self._cuda:
+            return planes
+        with torch.cuda.stream(self._h2d_stream):
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in planes.items()}
+            ev = torch.cuda.Event()
+            ev.record(self._h2d_stream)
+        self._ps_h2d_done[ctx["slot"]] = ev
+        self._compute_stream.wait_event(ev)
+        for v in dev.values():
+            v.record_stream(self._compute_stream)
+        return dev
 
     def _stage_dense(self, dense, compact: bool, buf_slot: int) -> dict:
         """The SBR planes as host tensors for the copy to the device:
@@ -967,23 +1159,50 @@ class BatchDecoder:
     def _sbr_dispatch(self, core_pcm, dense: dict, ctx: dict,
                       out_int16: bool = False):
         """Device half of the SBR stage: copy the planes up and run the
-        batched SBR program on the device-resident core PCM, on the compute
-        stream.  Slots that turn sticky this chunk first get host copies of
-        their state rows as it stands before the step (their float64 replay
-        continues from it).  Returns (device PCM [C, T, 2F], seeds) for
-        _sbr_download; int16 PCM when out_int16 and no slot is sticky."""
+        batched SBR program, or the SBR + PS program when the chunk carries
+        PS, on the device-resident core PCM, on the compute stream.  Slots
+        that turn sticky this chunk first get host copies of their state
+        rows as they stand before the step (their float64 replay continues
+        from them; a PS slot's from its PS state too).  Returns (device PCM
+        [C, T, 2F], seeds) for _sbr_download; int16 PCM when out_int16 and
+        no slot is sticky."""
         sticky = ctx["sticky"]
         prev = self._sbr_dev_state
         fresh = [s for s in sticky if self._sbr_np_procs[s] is None]
         with self._on_compute():
             seeds = {s: tuple(prev[k][s].cpu().numpy().astype(np.float64)
                               for k in _SEED_KEYS) for s in fresh}
+            for s in fresh if ctx["ps_enabled"] else ():
+                m = ctx["ps_slot_modes"][s]
+                pdev = self._ps_dev_states[bool(m)] if m is not None else None
+                if (ctx["ps_pair"][s] >= 0 and pdev is not None
+                        and self._ps_np[s] is None):
+                    seeds[("ps", s)] = {
+                        k: pdev[k][s].cpu().numpy().astype(np.float64)
+                        for k in _PS_SEED_KEYS}
         dev_dense = self._upload_dense(dense, ctx["slot"])
         cfg = self._cfg_planes_device(ctx["cfg"])
+        i16 = out_int16 and not sticky
         done = None
+        if ctx["ps_enabled"]:
+            modes = ctx["ps_modes"] or [False]
+            ps_dense = self._upload_ps(ctx)
         with self._on_compute():
-            pcm2, state = SB.sbr_apply(core_pcm, dev_dense, prev, cfg,
-                                       out_int16 and not sticky)
+            if not ctx["ps_enabled"]:
+                pcm2, state = SB.sbr_apply(core_pcm, dev_dense, prev, cfg, i16)
+            elif len(modes) == 2:
+                self._ps_mode_begin(modes, prev)
+                pcm2, state, *sets = PB.sbr_ps_apply_dual(
+                    core_pcm, dev_dense, ps_dense, prev,
+                    self._ps_dev_states[False], self._ps_dev_states[True],
+                    cfg, i16)
+                self._ps_dev_states = dict(zip((False, True), sets))
+            else:
+                self._ps_mode_begin(modes, prev)
+                m = modes[0]
+                pcm2, state, self._ps_dev_states[m] = PB.sbr_ps_apply(
+                    core_pcm, dev_dense, ps_dense, prev,
+                    self._ps_dev_states[m], cfg, i16, m)
             # contiguous: the state outlives the chunk's large intermediates
             self._sbr_dev_state = {k: v.contiguous() for k, v in state.items()}
             if self._cuda:
@@ -1013,6 +1232,7 @@ class BatchDecoder:
             return out
         # finalize_step waited for the SBR step, which followed the core's
         core_np = core_pcm.cpu().numpy()
+        from aacjax_torch.host.ps_decode import apply_ps
         for slot in sticky:
             proc = self._sbr_np_procs[slot]
             if proc is None:
@@ -1035,22 +1255,85 @@ class BatchDecoder:
                 proc.y_tail = ytr + 1j * yti
                 self._sbr_np_procs[slot] = proc
             recs = {t: (sf, c, eq) for (t, sf, c, eq) in ctx["records"][slot]}
+            pair = ctx["ps_pair"][slot]
             for t in range(ctx["nframes"][slot]):
                 core = core_np[slot, t].astype(np.float64)
-                if t in recs:
-                    sf, c, eq = recs[t]
-                    out[slot, t] = SD.process_channel(proc, core, sf, c, eq)
-                else:
+                if t not in recs:
                     out[slot, t] = SD.process_passthrough(proc, core)
+                    if pair >= 0:
+                        out[pair, t] = out[slot, t]
+                    continue
+                sf, c, eq = recs[t]
+                if pair < 0:
+                    out[slot, t] = SD.process_channel(proc, core, sf, c, eq)
+                    continue
+                # a PS stream: the float64 stereo path, its state seeded
+                # from the batched PS state and the pre-chunk pack state
+                if self._ps_np[slot] is None:
+                    self._ps_np[slot] = self._seed_ps_np(slot, ctx, seeds,
+                                                         proc)
+                psproc, vl, vr = self._ps_np[slot]
+                X = SD.process_channel(proc, core, sf, 0, eq, return_x=True)
+                xl, xr = apply_ps(psproc, X, getattr(sf, "ps", None))
+                pl, vl = SD._qmf_synthesis_np(xl, vl)
+                pr, vr = SD._qmf_synthesis_np(xr, vr)
+                self._ps_np[slot] = (psproc, vl, vr)
+                out[slot, t] = pl * (1.0 / 32768.0)
+                out[pair, t] = pr * (1.0 / 32768.0)
         return out
+
+    def _seed_ps_np(self, slot: int, ctx: dict, seeds: dict, proc):
+        """The float64 PS replay state (PSProc, v_l, v_r) of a slot that
+        turns sticky, warm where batched PS state exists: the synthesis
+        histories, delay and allpass lines and transient trackers from the
+        device state (apply_ps clears them itself if this frame flips the
+        band scheme, as libavcodec does); the hybrid FIR's input history
+        from the PS hist4 carry and the SBR xlow seed (X slots 26..29 and
+        30..31 of the last frame); the H matrices, phase histories and the
+        ps_data to replay from the pre-chunk pack snapshot."""
+        from aacjax_torch.host.ps_decode import PSProc
+        p = PSProc()
+        vl = np.array(proc.v_hist)
+        vr = vl * 0.0
+        dev = seeds.get(("ps", slot))
+        if dev is not None:
+            vl = dev["v_l"].copy()
+            vr = dev["v_r"].copy()
+            nb = dev["delay_r"].shape[0]
+            p.delay[:nb] = dev["delay_r"] + 1j * dev["delay_i"]
+            nap = dev["ap_r"].shape[0]
+            p.ap_delay[:nap] = dev["ap_r"] + 1j * dev["ap_i"]
+            npar = dev["peak"].shape[0]
+            p.peak_decay_nrg[:npar] = dev["peak"]
+            p.power_smooth[:npar] = dev["psmooth"]
+            p.peak_decay_diff[:npar] = dev["pdiff"]
+        sd = seeds.get(slot)
+        if sd is not None and dev is not None:
+            xlr, xli = sd[2], sd[3]
+            for i in range(5):
+                p.in_hist[i] = np.concatenate([
+                    dev["hist4_r"][:, i] + 1j * dev["hist4_i"][:, i],
+                    xlr[0:2, i] + 1j * xli[0:2, i]])
+        snap = (ctx.get("ps_snap") or [None] * self.C)[slot]
+        if snap is not None and snap.ps_prev is not None:
+            p.h_prev = snap.h_prev.copy()
+            p.h_slot_imag[:] = snap.h_slot_imag
+            p.ipd_hist[:17] = snap.ipd_hist
+            p.opd_hist[:17] = snap.opd_hist
+            p.ps_prev = snap.ps_prev
+            p.is34_prev = snap.is34_prev
+        return p, vl, vr
 
     def _readopt_sticky(self) -> set[int]:
         """Move sticky slots back onto the batched path at a settled chunk
         boundary: re-render the slot's cfg row from its stream's current
-        header, rebuild its device state rows (x_hist, xlow, ytail, v_hist)
-        from its float64 processor and its SBRHostState from the same.
-        Returns the slots that cannot re-adopt yet (no header seen since the
-        divert); they retry at every boundary."""
+        header, rebuild its device state rows (x_hist, xlow, ytail, and
+        v_hist for a slot without PS) from its float64 processor and its
+        SBRHostState from the same.  A PS slot also gets its rows of its
+        band mode's PS state set (applied by _ps_mode_begin after any
+        re-seed of that set) and its PSPackState from its PSProc.  Returns
+        the slots that cannot re-adopt yet (no header, or no PS band mode,
+        seen since the divert); they retry at every boundary."""
         if not hasattr(self, "_sbr_ctxs"):
             return set()
         sticky = [s for s in range(self.C) if self._sbr_np_sticky[s]]
@@ -1061,22 +1344,32 @@ class BatchDecoder:
         for i, st in enumerate(self.streams):
             slot_stream[st.base_slot: st.base_slot + st.n_slots] = i
         blocked = set()
-        rows = {k: [] for k in ("slot",) + _SEED_KEYS}
+        rows = {k: [] for k in ("slot",) + _SEED_KEYS if k != "v_hist"}
+        v_rows = {"slot": [], "v_hist": []}
         for s in sticky:
             ctx = self._sbr_ctxs[int(slot_stream[s])]
             proc = self._sbr_np_procs[s]
-            if proc is None or ctx.header is None:
+            ok = proc is not None and ctx.header is not None
+            if ok and self._ps_pair[s] >= 0:
+                pnp = self._ps_np[s]
+                ok = pnp is not None and pnp[0].is34_prev is not None
+            if not ok:
                 blocked.add(s)
                 continue
             self._set_cfg_row(s, ctx.header, sbrmod.derive_tables(
                 ctx.header, ctx.sample_rate))
             rows["slot"].append(s)
-            for k, v in (("x_hist", proc.x_hist), ("v_hist", proc.v_hist),
+            for k, v in (("x_hist", proc.x_hist),
                          ("xlow_r", proc.xlow_hist.real),
                          ("xlow_i", proc.xlow_hist.imag),
                          ("ytail_r", proc.y_tail.real),
                          ("ytail_i", proc.y_tail.imag)):
                 rows[k].append(np.asarray(v, np.float32))
+            if self._ps_pair[s] >= 0:
+                self._ps_readopt(s)
+            else:
+                v_rows["slot"].append(s)
+                v_rows["v_hist"].append(np.asarray(proc.v_hist, np.float32))
             self._sbr_host_states[s] = SP.SBRHostState(
                 bw=np.asarray(proc.bw, np.float64).copy(),
                 invf_prev=(None if proc.invf_prev is None
@@ -1088,14 +1381,39 @@ class BatchDecoder:
                 t_env_last=proc.t_env_last)
             self._sbr_np_procs[s] = None
             self._sbr_np_sticky[s] = False
-        if rows["slot"]:
-            with self._on_compute():
-                idx = torch.tensor(rows["slot"], device=self.device)
-                for k in _SEED_KEYS:
-                    self._sbr_dev_state[k][idx] = torch.from_numpy(
-                        np.stack(rows[k])).to(self.device)
+        with self._on_compute():
+            for r in (rows, v_rows):
+                if not r["slot"]:
+                    continue
+                idx = torch.tensor(r["slot"], device=self.device)
+                for k in r:
+                    if k != "slot":
+                        self._sbr_dev_state[k][idx] = torch.from_numpy(
+                            np.stack(r[k])).to(self.device)
         self._readopt_blocked = blocked
         return blocked
+
+    def _ps_readopt(self, s: int) -> None:
+        """A re-adopted PS slot: its exact rows for its band mode's state
+        set, kept as seeds for _ps_mode_begin, and its PSPackState from the
+        float64 replay's PSProc."""
+        pp, vl, vr = self._ps_np[s]
+        m = bool(pp.is34_prev)
+        nb, nap, npar = PB._NB[m], PB._NAP[m], PB._NPAR[m]
+        self._ps_row_seeds[m][s] = dict(
+            v_l=vl, v_r=vr,
+            hist4_r=np.stack([pp.in_hist[i][:4].real for i in range(5)], 1),
+            hist4_i=np.stack([pp.in_hist[i][:4].imag for i in range(5)], 1),
+            delay_r=pp.delay[:nb].real, delay_i=pp.delay[:nb].imag,
+            ap_r=pp.ap_delay[:nap].real, ap_i=pp.ap_delay[:nap].imag,
+            peak=pp.peak_decay_nrg[:npar], psmooth=pp.power_smooth[:npar],
+            pdiff=pp.peak_decay_diff[:npar])
+        self._ps_slot_is34[s] = m
+        self._ps_pack_states[s] = PP.PSPackState(
+            h_prev=pp.h_prev.copy(), ipd_hist=pp.ipd_hist[:17].copy(),
+            opd_hist=pp.opd_hist[:17].copy(), ps_prev=pp.ps_prev,
+            is34_prev=pp.is34_prev, h_slot_imag=pp.h_slot_imag.copy())
+        self._ps_np[s] = None
 
     def step_he_raw(self, payloads_per_stream: list[list[bytes] | None],
                     compact: bool = True,
@@ -1264,8 +1582,8 @@ class BatchDecoder:
                      ) -> None:
         """Recycle one stream's slots for a new client without touching the
         other streams: zeroes its decoder state (overlap, window-shape
-        history, predictor rows, SBR state and header rows) and clears the
-        failure flag.  An optional
+        history, predictor rows, SBR and PS state, header rows, the PS pair)
+        and clears the failure flag.  An optional
         new config swaps the stream's tables in place; it must keep the
         batch's frame length and ELD-ness and fit the stream's slots.
 
@@ -1309,6 +1627,9 @@ class BatchDecoder:
             if hasattr(self, "_sbr_ctxs"):
                 for v in self._sbr_dev_state.values():
                     v[lo:hi] = 0.0
+                for d in self._ps_dev_states.values():
+                    for v in (d or {}).values():
+                        v[lo:hi] = 0.0
         if hasattr(self, "_sbr_ctxs"):
             self._sbr_ctxs[idx] = sbrmod.SBRContext(
                 sample_rate=2 * st.config.sample_rate)
@@ -1318,6 +1639,12 @@ class BatchDecoder:
                 self._sbr_np_sticky[s] = False
                 self._readopt_blocked.discard(s)
                 self._clear_cfg_row(s)
+                self._ps_np[s] = None
+                self._ps_pair[s] = -1
+                self._ps_slot_is34[s] = None
+                for m in (False, True):
+                    self._ps_row_seeds[m].pop(s, None)
+                self._ps_pack_states[s] = PP.PSPackState()
 
     # -- state save/restore --------------------------------------------------
     def save_state(self) -> dict:
@@ -1327,8 +1654,9 @@ class BatchDecoder:
         chunk has run, and once an HE chunk has run the `sbr` dict: the
         device FIFOs (`dev`, with aacjax's names and shapes), the parse
         contexts, the host's sequential state, the float64 processors of
-        sticky slots, the per-slot headers, and the Parametric Stereo
-        fields with their empty values.  The format of aacjax's
+        sticky slots, the per-slot headers, and the Parametric Stereo state
+        (the device state per band mode, `ps_dev`, the pack states, pairs,
+        band modes and replay state).  The format of aacjax's
         BatchDecoder.save_state."""
         import copy
         if self._pipeline_active:
@@ -1358,19 +1686,18 @@ class BatchDecoder:
                 ps_pair=list(self._ps_pair),
                 ps_pack=copy.deepcopy(self._ps_pack_states),
                 ps_np=copy.deepcopy(self._ps_np),
-                ps_dev={m: None for m in self._ps_dev_states})
+                ps_dev={m: (None if d is None else
+                            {k: v.cpu().numpy().copy() for k, v in d.items()})
+                        for m, d in self._ps_dev_states.items()})
         return out
 
     def restore_state(self, state: dict) -> None:
         """Inverse of save_state; the decoder must have the same stream
         layout (C, T, frame length).  Host objects are deep-copied, so the
         checkpoint stays reusable.  Also takes the dict aacjax's
-        BatchDecoder.save_state returns for the same layout, but for a
-        batch that has decoded Parametric Stereo (ROADMAP Queue 1 item 9)."""
+        BatchDecoder.save_state returns for the same layout."""
         import copy
         sbr = state.get("sbr")
-        if sbr is not None and sbr["ps_enabled"]:
-            raise NotImplementedError(f"{HE_NEXT}: the state holds PS state")
         self._sync_compute()
         self._set_overlap(np.asarray(state["overlap"]))
         self.prev_shapes[:] = state["prev_shapes"]    # in place: keeps views
@@ -1411,3 +1738,26 @@ class BatchDecoder:
                     self._set_cfg_row(s, hdr, sbrmod.derive_tables(
                         hdr, ctx.sample_rate))
         self._readopt_blocked = set()
+        self._ps_enabled = sbr["ps_enabled"]
+        self._ps_slot_is34 = list(sbr["ps_slot_is34"])
+        self._ps_fresh = dict(sbr["ps_fresh"])
+        self._ps_row_seeds = copy.deepcopy(sbr["ps_row_seeds"])
+        self._ps_pair = list(sbr["ps_pair"])
+        self._ps_pack_states = copy.deepcopy(sbr["ps_pack"])
+        self._ps_np = copy.deepcopy(sbr["ps_np"])
+        with self._on_compute():
+            for m, d in sbr["ps_dev"].items():
+                if d is None:
+                    self._ps_dev_states[m] = None
+                    continue
+                want = PB.ps_state_init(self.C, m, "cpu")
+                for k, v in d.items():
+                    if np.shape(v) != tuple(want[k].shape):
+                        raise ValueError(
+                            f"ps state {k}: shape {np.shape(v)}, expected "
+                            f"{tuple(want[k].shape)}")
+                self._ps_dev_states[m] = {
+                    k: torch.from_numpy(np.array(v, np.float32)).to(
+                        self.device) for k, v in d.items()}
+        self._ps_dense = (PP.alloc_ps_dense(self.C, self.T)
+                          if self._ps_enabled else None)

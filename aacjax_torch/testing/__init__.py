@@ -539,7 +539,8 @@ def multi_rdb_adts(n_blocks: int = 9, crc: bool = False, seed: int = 0
 
 
 # -- HE-AAC v1 -------------------------------------------------------------
-def he_serving_corpus(n_unique: int, seconds: float, chunk: int):
+def he_serving_corpus(n_unique: int, seconds: float, chunk: int,
+                      lowpass: bool = True, ps: bool = False):
     """A serving corpus of HE-AAC v1 stereo streams built as the reference's
     HE benchmark builds its one (`bench.py` `bench_he`): the core AAC-LC at
     22.05 kHz (target_sf=122) from 8th-order Butterworth low-passed noise
@@ -548,29 +549,54 @@ def he_serving_corpus(n_unique: int, seconds: float, chunk: int):
     resolution, inverse filtering LOW, envelope 25 and noise 24 in the
     quantizer's units); 2x output to 44.1 kHz.  The reference encodes one
     stream from seed 7; stream i here uses seed 7 + i.  Each stream is cut
-    to a whole number of `chunk`-frame chunks.  Returns (config, list of
-    payload lists)."""
+    to a whole number of `chunk`-frame chunks.  lowpass=False leaves the
+    noise unfiltered (x9000 all the same).  ps=True builds `bench_he`'s
+    HE-AAC v2 corpus instead (see ps_serving_corpus).  Returns (config,
+    list of payload lists)."""
     from scipy import signal as sig
 
     from aacjax_torch.host import sbr as S
-    from aacjax_torch.testing.sbr_encoder import SBRFrameSpec, sbr_payload
-    config = parse_asc(make_asc(2, 7, 2))    # 22.05 kHz core, stereo
+    from aacjax_torch.testing.sbr_encoder import (PSSpec, SBRFrameSpec,
+                                                  sbr_payload)
+    nch = 1 if ps else 2
+    config = parse_asc(make_asc(2, 7, nch))  # 22.05 kHz core
     h = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
     t = S.derive_tables(h, 2 * config.sample_rate)
     spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
                         env_q=np.full((2, t.n_high), 25, np.int64),
                         noise_q=np.full((2, t.n_q), 24, np.int64))
-    pay = sbr_payload([spec, spec], h, 2 * config.sample_rate)
+    if ps:
+        psd = PSSpec(iid_mode=0, num_env=2,
+                     iid_par=np.stack([np.arange(10) % 15 - 7,
+                                       7 - np.arange(10) % 15]),
+                     icc_mode=0, icc_par=np.arange(20).reshape(2, 10) % 8,
+                     ipd_par=np.arange(10).reshape(2, 5) % 8,
+                     opd_par=np.arange(10)[::-1].reshape(2, 5) % 8)
+        pay = sbr_payload([spec], h, 2 * config.sample_rate, ps=psd)
+    else:
+        pay = sbr_payload([spec, spec], h, 2 * config.sample_rate)
     n = int(seconds * config.sample_rate) // 1024 * 1024
     bl, al = sig.butter(8, 3600 / (config.sample_rate / 2))
     corpus = []
     for i in range(n_unique):
         rng = np.random.default_rng(7 + i)
-        x = sig.lfilter(bl, al, rng.standard_normal((n, 2)), axis=0) * 9000
-        frames = enc.encode_pcm_frames(x, config, target_sf=122,
+        x = rng.standard_normal((n, nch))
+        if lowpass:
+            x = sig.lfilter(bl, al, x, axis=0)
+        frames = enc.encode_pcm_frames(x * 9000, config, target_sf=122,
                                        fil_payloads=[pay])
         corpus.append(list(frames[:len(frames) // chunk * chunk]))
     return config, corpus
+
+
+def ps_serving_corpus(n_unique: int, seconds: float, chunk: int):
+    """A serving corpus of HE-AAC v2 mono streams, `bench_he(ps=True)`'s
+    construction: the HE-512 corpus's core and SBR extension at one channel,
+    the extension carrying ps_data (IID in coarse 10 bands ramped -7..7 and
+    back over two envelopes, ICC in 10 bands, IPD and OPD in 5 bands: 20-band
+    hybrid mode).  Decoded as stereo at 44.1 kHz; each stream needs one
+    spare slot (cce_slots=1).  Returns (config, list of payload lists)."""
+    return he_serving_corpus(n_unique, seconds, chunk, ps=True)
 
 
 def _quiet_tns_cpe(rng, cfg):
@@ -666,11 +692,12 @@ def he_ps_stream(n_frames: int = 3, seed: int = 2) -> bytes:
     return b"".join(enc.adts_frame(p, config) for p in frames)
 
 
-def he_chunk(n_streams: int, T: int, seconds: float = 1.0):
+def he_chunk(n_streams: int, T: int, seconds: float = 1.0,
+             lowpass: bool = True):
     """One chunk of HE-AAC v1 serving traffic: (config, payload lists of
     n_streams stereo streams, T frames each) from `he_serving_corpus(2,
-    seconds, T)`."""
-    config, corpus = he_serving_corpus(2, seconds, T)
+    seconds, T, lowpass)`."""
+    config, corpus = he_serving_corpus(2, seconds, T, lowpass)
     return config, [corpus[i % len(corpus)][:T] for i in range(n_streams)]
 
 
@@ -694,3 +721,139 @@ def sbr_apply_inputs(n_streams: int, T: int, device, compact: bool = False):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return core, planes, cfg, SB.sbr_state_init(dec.C, dev)
+
+
+# -- HE-AAC v2 (Parametric Stereo) -------------------------------------------
+def _ps_noise(rng, n: int) -> np.ndarray:
+    """Mostly low-pass mono noise with a small broadband floor, peak ~27000."""
+    x = rng.standard_normal((n + 256, 1))
+    k = np.hanning(65) * np.sinc(np.linspace(-8, 8, 65) * 0.4)
+    x[:, 0] = np.convolve(x[:, 0], k, mode="same")
+    x = x[:n] + 0.03 * rng.standard_normal((n, 1))
+    return x * 9000 / max(1.0, np.abs(x).max()) * 3
+
+
+def ps_specs() -> dict:
+    """Named PSSpecs: the two of the reference's libavcodec test of its
+    batched PS (`20-band` with IPD/OPD in 5 bands, `34-band` with IPD/OPD in
+    17), and two-envelope ramps without phases in each mode."""
+    from aacjax_torch.testing.sbr_encoder import PSSpec
+    r10, r20, r34 = (np.arange(n) % 15 - 7 for n in (10, 20, 34))
+    return {
+        "20-band": PSSpec(iid_mode=0, iid_par=r10[None, :], icc_mode=0,
+                          icc_par=(np.arange(10) % 8)[None, :],
+                          ipd_par=((np.arange(5) * 3) % 8)[None, :],
+                          opd_par=(np.arange(5) % 8)[None, :]),
+        "34-band": PSSpec(iid_mode=2, iid_par=r34[None, :], icc_mode=2,
+                          icc_par=(np.arange(34) % 8)[None, :],
+                          ipd_par=((np.arange(17) * 3) % 8)[None, :],
+                          opd_par=((np.arange(17) * 5) % 8)[None, :]),
+        "20-band 2 env": PSSpec(iid_mode=1, num_env=2,
+                                iid_par=np.stack([r20, -r20]), icc_mode=1,
+                                icc_par=np.arange(40).reshape(2, 20) % 8),
+        "34-band 2 env": PSSpec(iid_mode=2, num_env=2,
+                                iid_par=np.stack([r34, -r34]), icc_mode=2,
+                                icc_par=np.stack([np.arange(34) % 8,
+                                                  np.arange(34)[::-1] % 8])),
+    }
+
+
+def ps_stream(ps, n_frames: int = 7, seed: int = 1) -> bytes:
+    """An HE-AAC v2 mono ADTS stream (22.05 kHz core, stereo at 44.1 kHz):
+    every frame's SBR extension carries the PSSpec `ps`."""
+    from aacjax_torch.host import sbr as S
+    from aacjax_torch.testing.sbr_encoder import SBRFrameSpec, sbr_payload
+    rng = np.random.default_rng(seed)
+    config = parse_asc(make_asc(2, 7, 1))
+    h = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    t = S.derive_tables(h, 2 * config.sample_rate)
+    spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
+                        env_q=np.full((2, t.n_bands(1)), 25, np.int64),
+                        noise_q=np.full((2, t.n_q), 30, np.int64))
+    pay = sbr_payload([spec], h, 2 * config.sample_rate, ps=ps)
+    frames = enc.encode_pcm_frames(_ps_noise(rng, 1024 * n_frames), config,
+                                   target_sf=118, fil_payloads=[pay])
+    return b"".join(enc.adts_frame(p, config) for p in frames)
+
+
+def ps_flip_stream(modes, seed: int = 7) -> bytes:
+    """An HE-AAC v2 stream of one frame per entry of `modes` (0 / 1 / 2 =
+    10 / 20 / 34 bands), IID / ICC / IPD / OPD random walks: the band scheme
+    flips where the mode does."""
+    from aacjax_torch.host import sbr as S
+    from aacjax_torch.testing.sbr_encoder import (PSSpec, SBRFrameSpec,
+                                                  sbr_payload)
+    rng = np.random.default_rng(seed)
+    config = parse_asc(make_asc(2, 7, 1))
+    h = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    t = S.derive_tables(h, 2 * config.sample_rate)
+    nb = t.n_bands(1)
+    pays = []
+    for f, m in enumerate(modes):
+        nr, nri = (10, 20, 34)[m], (5, 11, 17)[m]
+        iid = np.clip(np.cumsum(rng.integers(-2, 3, (2, nr)), axis=1), -7, 7)
+        icc = np.clip(3 + np.cumsum(rng.integers(-2, 3, (2, nr)), axis=1),
+                      0, 7)
+        ps = PSSpec(
+            iid_mode=m, num_env=2, iid_par=iid, icc_mode=m, icc_par=icc,
+            ipd_par=np.clip(np.cumsum(
+                rng.integers(-1, 2, (2, nri)), axis=1) % 8, 0, 7),
+            opd_par=np.clip(np.cumsum(
+                rng.integers(-1, 2, (2, nri)), axis=1) % 8, 0, 7))
+        spec = SBRFrameSpec(num_env=2, freq_res=1, invf=[1] * t.n_q,
+                            env_q=np.full((2, nb), 25, np.int64),
+                            noise_q=np.full((2, t.n_q), 30, np.int64))
+        pays.append(sbr_payload([spec], h, 2 * config.sample_rate, ps=ps,
+                                write_header=(f == 0)))
+    frames = enc.encode_pcm_frames(_ps_noise(rng, 1024 * len(modes)), config,
+                                   target_sf=118, fil_payloads=pays)
+    return b"".join(enc.adts_frame(p, config) for p in frames)
+
+
+def ps_decorr_inputs(seed: int, B: int, S: int, is34: bool) -> list:
+    """Inputs of `ps_decorr.decorrelate` for B rows over S slots in one band
+    mode, as numpy: the power [B,S,npar] (squared noise at hybrid-band
+    scale, with silent stretches and bursts, so that the transient gain
+    takes both branches), the allpass input [B,S,nap] re / im, and a
+    carried state (peak, psmooth, pdiff [B,npar]; ap_r, ap_i
+    [B,nap,3,5]).  The constants (qf_r, qf_i, ag) come from
+    `ps_batch.consts_np`."""
+    from aacjax_torch.kernels import ps_batch as PB
+    rng = np.random.default_rng(seed)
+    npar, nap = PB._NPAR[is34], PB._NAP[is34]
+    level = np.where(rng.random((B, S, 1)) < 0.1, 30.0, 1.0)
+    level[:, S // 3: S // 3 + 8] = 0.0
+    pw = (rng.standard_normal((B, S, npar)) * 300 * level) ** 2
+    xr, xi = (rng.standard_normal((B, S, nap)) * 300 for _ in range(2))
+    peak = rng.random((B, npar)) * 1e5
+    psm, pdf = peak * 0.5, peak * 0.3
+    ap = [rng.standard_normal((B, nap, 3, 5)) * 100 for _ in range(2)]
+    return [a.astype(np.float32) for a in (pw, xr, xi, peak, psm, pdf, *ap)]
+
+
+def sbr_ps_apply_inputs(n_streams: int, T: int, device):
+    """The inputs `ps_batch.sbr_ps_apply` takes on the PS serving path for
+    one chunk of `ps_serving_corpus` traffic (n_streams mono streams with a
+    spare slot each, C = 2 * n_streams): (core PCM [C, T, 1024] f32,
+    compact SBR planes, PS planes, cfg planes, zero SBR state, zero 20-band
+    PS state seeded as the runtime seeds it), tensors on `device`, from
+    BatchDecoder's native route there."""
+    import torch
+
+    from aacjax_torch.kernels import ps_batch as PB
+    from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime.batch import BatchDecoder
+    config, corpus = ps_serving_corpus(2, 1.0, T)
+    chunk = [corpus[i % len(corpus)][:T] for i in range(n_streams)]
+    dec = BatchDecoder([config] * n_streams, chunk_frames=T, cce_slots=1,
+                       device=device)
+    parsed, dense, ctx = dec._he_host_phase(chunk, compact=True)
+    core = dec._device_step(dec._upload_batch(parsed), out_int16=False)
+    dev = torch.device(device)
+    planes = {k: v.to(dev) for k, v in dense.items()}
+    ps = {k: v.to(dev) for k, v in ctx["ps_planes"].items()}
+    cfg = {k: torch.from_numpy(v).to(dev) for k, v in ctx["cfg"].items()}
+    state = SB.sbr_state_init(dec.C, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return core, planes, ps, cfg, state, PB.ps_state_init(dec.C, False, dev)

@@ -56,13 +56,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      streams (C = 1024; 22.05 kHz core, 44.1 kHz out; bench_he's corpus),
      chunk_frames=8, decode_he_pipelined with int16 PCM, 2 runs of 4
      chunks: launch counts (1 tail a chunk on the q/sf core), peak memory,
-     every chunk against the same route's step and its core against the
-     plain core route, he_aac_aggregate_realtime_x per run, the stage split
-     (host phase, the two copies up, core and SBR compute, the copy down)
-     and a cProfile of one host phase; then decode_adts on an HE stream
-     whose core carries TNS, the streaming AACDecoder, and step_he_raw over
-     a mid-chunk SBR header change (float64 replay, re-adoption), each
-     against the CPU.
+     every chunk against the same route's step, its core against the plain
+     core route and its int16 PCM against the plain core's, held to the HE
+     bound (HE_I16_ONSET / HE_I16_STEADY, derived beside HE_ROUTE_TOL),
+     he_aac_aggregate_realtime_x per run, the stage split (host phase, the
+     copies up, core and SBR compute, the copy down) and a cProfile of one
+     host phase; then decode_adts on an HE stream whose core carries TNS,
+     the streaming AACDecoder, and step_he_raw over a mid-chunk SBR header
+     change (float64 replay, re-adoption), each against the CPU;
+  6. HE-AAC v2 (Parametric Stereo): in phase 2 the PS decorrelator kernel
+     at C = 1024, T = 8 in both band modes, bit-equal to its plain version
+     over two calls, with its time, bound, the plain version's time and the
+     reference's Toeplitz-product form as a yardstick; after the HE checks,
+     one sbr_ps_apply at the PS-512 chunk's shape on the card against the
+     CPU with its device time and costliest ops; after HE-512, PS-512 --
+     512 HE-AAC v2 mono streams decoded as stereo (bench_he(ps=True)'s
+     corpus, cce_slots=1: C = 1024), as HE-512 (1 tail and 1 decorrelator
+     launch a chunk, he_aac_v2_aggregate_realtime_x, stage split with the
+     PS planes' copy, the HE bound); then decode_adts on a 20-band and a
+     34-band stream, a mixed 20/34 batch, a band-scheme flip, AACDecoder
+     and save / restore, each against the CPU.
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
@@ -216,10 +229,12 @@ def ptxas_lines(log: str) -> list[str]:
             k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
             t = re.search(r"(tns_(?:filter|prepare)_kernel)ILi(\d+)ELb(\d)E",
                           name)
+            plain = [n for n in ("pred_kernel", "ps_decorr_kernel")
+                     if n in name]
             kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
                     else f"{t[1]}<F={t[2] if t[2] != '0' else 'any'}, "
                          f"spec_i16={t[3]}>" if t
-                    else "pred_kernel" if "pred_kernel" in name else name)
+                    else plain[0] if plain else name)
             out.append(f"ptxas {kind}: {line.split(':', 1)[1].strip()}; "
                        f"{spill}")
             name, spill = None, ""
@@ -330,6 +345,7 @@ def phase_kernels(torch, dev) -> dict:
 
     phase_tns_kernel(torch, dev, results)
     phase_pred_kernel(torch, dev, results)
+    phase_ps_decorr_kernel(torch, dev, results)
     return results
 
 
@@ -459,6 +475,102 @@ def phase_pred_kernel(torch, dev, results: dict) -> None:
             f"({b_by}, {nb / 1e6:.1f} MB); no PyTorch call computes it")
 
 
+def toeplitz_ms(torch, dev, B: int, S: int, is34: bool) -> float:
+    """The yardstick of the allpass: the reference's default form of its
+    recurrences (AACJAX_PS_SCAN=matmul), per link m (delay d = 3 + m) one
+    complex product of the [nap, n, n] lower-triangular Toeplitz matrix
+    g^(i-k) (g = a_m q_m, n = ceil(S / d)) with the link's input as
+    [nap, n, B d] columns: three torch.matmul calls in complex64, the
+    shapes of B rows over S slots.  Per call, CUDA events."""
+    from aacjax_torch.kernels import ps_batch as PB
+    c = PB.consts_np(is34)
+    nap = PB._NAP[is34]
+    mats, cols = [], []
+    for m in range(3):
+        d = m + 3
+        n = -(-S // d)
+        g = (c["ag"][:, m].astype(np.float64)
+             * (c["qf_r"][:, m] + 1j * c["qf_i"][:, m]))
+        lag = np.arange(n)[:, None] - np.arange(n)[None, :]
+        tm = np.where(lag >= 0, g[:, None, None] ** np.clip(lag, 0, None), 0)
+        mats.append(torch.from_numpy(tm.astype(np.complex64)).to(dev))
+        cols.append(torch.randn(nap, n, B * d, dtype=torch.complex64,
+                                device=dev))
+
+    def run():
+        return [torch.matmul(t, w) for t, w in zip(mats, cols)]
+    return time_ms(torch, run, reps=REPS)
+
+
+def phase_ps_decorr_kernel(torch, dev, results: dict) -> None:
+    """The PS decorrelator kernel against its plain version at PS-512's
+    chunk shape (C = 1024 rows, T = 8: S = 256 slots), in both band modes,
+    over two calls with the state carried, bit for bit; its time per call
+    and device time, its bound, the plain version's time (one call, a
+    Python loop over the slots) and the Toeplitz-product yardstick.  The
+    20-band case (PS-512's mode) is the one `results` keeps."""
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import ps_batch as PB
+    from aacjax_torch.kernels import ps_decorr
+
+    def bits_equal(a, b):
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    B, S = 2 * N_STREAMS, 32 * HE_CHUNK
+    for is34 in (False, True):
+        c = PB.consts_np(is34)
+        npar, nap = PB._NPAR[is34], PB._NAP[is34]
+        args = [torch.from_numpy(a).to(dev) for a in
+                TI.ps_decorr_inputs(3 + is34, B, S, is34)
+                + [c["qf_r"], c["qf_i"], c["ag"]]]
+        st_k = st_p = args[3:8]
+        plain = None
+        for k in range(2):
+            x = (args[:3] if k == 0
+                 else [a.flip(1).contiguous() for a in args[:3]])
+            got = ps_decorr.decorrelate(*x, *st_k, *args[8:])
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            want = ps_decorr.decorrelate_ref(*x, *st_p, *args[8:])
+            b.record()
+            torch.cuda.synchronize()
+            plain = plain or a.elapsed_time(b)
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(bits_equal(g, w), f"ps_decorr {npar}-band call {k}: "
+                      f"output {i} differs from the plain version (max err "
+                      f"{float((g - w).abs().max())})")
+            check(bool(torch.isfinite(got[0]).all()
+                       and torch.isfinite(got[4]).all()),
+                  "ps_decorr: non-finite output")
+            st_k, st_p = got[1:4] + got[6:], want[1:4] + want[6:]
+
+        def run():
+            return ps_decorr.decorrelate(*args[:3], *st_k, *args[8:])
+        ms = time_ms(torch, run, reps=REPS)
+        dms = device_ms(torch, run, "ps_decorr_kernel")
+        # bytes: the power and the gains, the allpass input and output once
+        # each, the states in and out.  Operations per slot: ~10 for the
+        # detector's step (a product, a max, two smoothers, the test and the
+        # quotient), 14 per allpass link (6 products and 4 sums for n, 2 of
+        # each for the push)
+        nb = (2 * B * S * npar * 4 + 4 * B * S * nap * 4
+              + 2 * nbytes(*args[3:8]))
+        b_ms, b_by = bound(nb, 10.0 * B * S * npar + 42.0 * B * S * nap)
+        lib = toeplitz_ms(torch, dev, B, S, is34)
+        if not is34:
+            results["ps_decorr"] = dict(max_abs_err=0.0, ms=ms,
+                                        device_ms=dms, plain_ms=plain,
+                                        bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=lib)
+        say(f"kernel ps_decorr B={B} S={S} {npar}-band: bit-equal to the "
+            f"plain version over 2 calls (state carried); {ms:.4f} ms per "
+            f"call (device {fmt(dms)}), plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB), the reference's "
+            f"default allpass form (3 complex Toeplitz torch.matmul, "
+            f"[{nap}, n, n] x [{nap}, n, {B} d]) {lib:.4f} ms; no PyTorch "
+            "call computes the transient detector")
+
+
 def parse_threads(n_streams: int) -> int:
     """The thread count the native batch parse resolves to for n_streams
     streams, by the rule of native/aacparse.cc (aacparse_batch):
@@ -498,18 +610,22 @@ def stage_split(torch, dec, chunk, out_int16: bool, runs: int = 5):
     return tuple(float(v) for v in np.median(np.array(splits), axis=0))
 
 
-KERNELS = ("tail", "synthesis", "tns", "pred")
+KERNELS = ("tail", "synthesis", "tns", "pred", "ps_decorr")
+
+
+def _kernel_modules() -> dict:
+    from aacjax_torch.kernels import pred, ps_decorr, synth, tail, tns
+    return dict(tail=tail, synthesis=synth, tns=tns, pred=pred,
+                ps_decorr=ps_decorr)
 
 
 def reset_launches() -> None:
-    from aacjax_torch.kernels import pred, synth, tail, tns
-    tail.launches = synth.launches = tns.launches = pred.launches = 0
+    for mod in _kernel_modules().values():
+        mod.launches = 0
 
 
 def read_launches() -> dict:
-    from aacjax_torch.kernels import pred, synth, tail, tns
-    return dict(tail=tail.launches, synthesis=synth.launches,
-                tns=tns.launches, pred=pred.launches)
+    return {k: mod.launches for k, mod in _kernel_modules().items()}
 
 
 def serving_pass(torch, name: str, config, corpus, windows: int,
@@ -808,6 +924,61 @@ HE_MAX_CHUNKS = 4    # chunks a run
 # far less in practice), a difference the same division amplifies
 HE_TOL = 2e-4
 HE_ROUTE_TOL = 1e-3
+# HE int16 PCM through the kernel route's core (the tail kernel, FFT IMDCT)
+# against the plain route's (the dense IMDCT), both through the same SBR
+# (and PS) program.  The cores differ by float rounding (~5e-7 of full
+# scale); the SBR program amplifies that in the first two frames of a
+# stream, where the covariance LPC of the patch source bands is solved over
+# a window that still holds the zeroed start-up history and the quiet
+# onset: a near-singular 2x2 system.  tests/test_torch_he_bound.py measures
+# it on the CPU over 2 stereo streams x 4 frames of HE-512's traffic, with
+# the port's numpy model of the kernel's FFT against its dense IMDCT: frames
+# 0-1 differ by 4 LSB on 12.0% of their samples (low-passed as bench_he
+# builds it) and 5 LSB on 16.8% (the same noise unfiltered), frames 2-3 by
+# 1 LSB on 0.15% and 0.23%; the reference's SBR program fed the same two
+# cores gives 4 LSB on 12.1% / 1 on 0.18% and 5 on 16.8% / 1 on 0.21%, so
+# the growth is the SBR math's, in both packages (the two SBR programs on
+# one core agree within 1 LSB on <= 0.15%).  Hence the bound per frame of a
+# stream: frames 0 and 1 within HE_I16_ONSET (max LSB, share of their
+# samples; 8 and 0.40 leave a margin over the measured 5 and 0.168), later
+# frames the North-star rule HE_I16_STEADY.
+HE_ONSET_FRAMES = 2
+HE_I16_ONSET = (8, 0.40)
+HE_I16_STEADY = (1, 0.02)
+
+
+def he_i16_stats(pairs) -> dict:
+    """HE int16 PCM of one route against another's: `pairs` holds (got,
+    want, first) per chunk, [C, T, 2F] int16 arrays whose frame t is frame
+    first + t of its stream.  Returns, for the onset frames and the later
+    ones, (max delta in LSB, share of samples that differ, samples)."""
+    stats = {}
+    for part in ("onset", "steady"):
+        d_max, n_diff, n_all = 0, 0, 0
+        for got, want, first in pairs:
+            t = first + np.arange(got.shape[1])
+            sel = (t < HE_ONSET_FRAMES) == (part == "onset")
+            if not sel.any():
+                continue
+            d = np.abs(got[:, sel].astype(np.int32)
+                       - want[:, sel].astype(np.int32))
+            d_max = max(d_max, int(d.max()))
+            n_diff += int((d > 0).sum())
+            n_all += d.size
+        stats[part] = (d_max, n_diff / max(n_all, 1), n_all)
+    return stats
+
+
+def he_i16_check(pairs, what: str) -> dict:
+    """he_i16_stats, held to HE_I16_ONSET and HE_I16_STEADY."""
+    stats = he_i16_stats(pairs)
+    for part, (limit, share_max) in (("onset", HE_I16_ONSET),
+                                     ("steady", HE_I16_STEADY)):
+        d_max, share, _ = stats[part]
+        check(d_max <= limit and share < share_max,
+              f"{what}: {part} frames differ by up to {d_max} LSB on "
+              f"{share:.5f} of samples, bound {limit} LSB on < {share_max}")
+    return stats
 
 
 def he_close(got, want, what: str, tol: float = HE_TOL) -> float:
@@ -833,8 +1004,6 @@ def phase_he_checks(torch, dev) -> None:
     f32 and int16, on the card against the same calls on the CPU; then the
     sbr_apply's time and the ten device ops of it that take the most time
     (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from aacjax_torch import testing as TI
     from aacjax_torch.kernels import qmf
     from aacjax_torch.kernels import sbr_batch as SB
@@ -883,8 +1052,15 @@ def phase_he_checks(torch, dev) -> None:
         say(f"he: sbr_apply C=1024 T=8 on the card matches the CPU: {what}; "
             f"state max err {serr:.4g} * max(1, max|ref|)")
 
-    def run():
-        return SB.sbr_apply(core, planes, state, cfg, True)
+    top_device_ops(torch, "he", "sbr_apply C=1024 T=8 (int16 out)",
+                   lambda: SB.sbr_apply(core, planes, state, cfg, True))
+
+
+def top_device_ops(torch, name: str, what: str, run, top: int = 10) -> None:
+    """`run`'s time per call (CUDA events, median of 10), peak memory, and
+    the device time and the `top` costliest device ops of one call in a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
     ms = time_ms(torch, run, runs=10)
     torch.cuda.reset_peak_memory_stats()
     run()
@@ -895,25 +1071,64 @@ def phase_he_checks(torch, dev) -> None:
         torch.cuda.synchronize()
     evs = list(prof.key_averages())
     total = sum(dev_time(e) for e in evs)
-    say(f"he: sbr_apply C=1024 T=8 (int16 out): {ms:.4f} ms per call (CUDA "
-        f"events, median of 10), device time in the trace {total / 1e3:.4f} "
-        f"ms over {sum(e.count for e in evs)} kernels, peak memory "
-        f"{peak:.2f} GiB; top ten device ops:")
-    for e in sorted(evs, key=dev_time, reverse=True)[:10]:
+    say(f"{name}: {what}: {ms:.4f} ms per call (CUDA events, median of 10), "
+        f"device time in the trace {total / 1e3:.4f} ms over "
+        f"{sum(e.count for e in evs)} kernels, peak memory {peak:.2f} GiB; "
+        f"top {top} device ops:")
+    for e in sorted(evs, key=dev_time, reverse=True)[:top]:
         t = dev_time(e)
-        say(f"he:   {t / 1e3:8.4f} ms {100 * t / total:5.1f}% x{e.count:<3d} "
-            f"{e.key[:100]}")
+        say(f"{name}:   {t / 1e3:8.4f} ms {100 * t / max(total, 1e-9):5.1f}% "
+            f"x{e.count:<3d} {e.key[:100]}")
+
+
+def phase_ps_checks(torch, dev) -> None:
+    """One sbr_ps_apply at the PS-512 chunk's shape (512 mono streams with
+    their pairs, C = 1024, T = 8, compact SBR planes, 20-band PS), f32 and
+    int16, on the card against the same call on the CPU, its PCM and both
+    states; then its time, peak memory and costliest device ops."""
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import ps_batch as PB
+    t0 = time.perf_counter()
+    core, planes, ps, cfg, state, ps_state = TI.sbr_ps_apply_inputs(
+        N_STREAMS, HE_CHUNK, dev)
+    say(f"ps: sbr_ps_apply inputs of one PS-512 chunk made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def cpu(d):
+        return {k: v.cpu() for k, v in d.items()}
+    for out_int16 in (False, True):
+        got = PB.sbr_ps_apply(core, planes, ps, state, ps_state, cfg,
+                              out_int16)
+        want = PB.sbr_ps_apply(core.cpu(), cpu(planes), cpu(ps), cpu(state),
+                               cpu(ps_state), cpu(cfg), out_int16)
+        if out_int16:
+            from aacjax_torch.testing import assert_pcm_close
+            assert_pcm_close(got[0].cpu(), want[0], True, "sbr_ps_apply int16")
+            share = float((got[0].cpu() != want[0]).float().mean())
+            what = f"int16 within 1 LSB ({share:.5f} of samples differ)"
+        else:
+            err = he_close(got[0].cpu(), want[0], "sbr_ps_apply f32")
+            what = (f"f32 max err {err:.4g} * max(1, max|ref|) (max|ref| "
+                    f"{float(want[0].abs().max()):.4g})")
+        serr = max(he_close(g[k].cpu(), w[k], f"sbr_ps_apply state {k}")
+                   for g, w in zip(got[1:], want[1:]) for k in w)
+        say(f"ps: sbr_ps_apply C=1024 T=8 on the card matches the CPU: "
+            f"{what}; SBR and PS state max err {serr:.4g} * max(1, max|ref|)")
+    top_device_ops(torch, "ps-512", "sbr_ps_apply C=1024 T=8 (int16 out)",
+                   lambda: PB.sbr_ps_apply(core, planes, ps, state, ps_state,
+                                           cfg, True))
 
 
 def he_stage_split(torch, dec, chunk, runs: int = 3):
     """One HE chunk's stages on `dec`, medians of `runs`: the host phase
-    (native core parse, SBR parse and pack, plane compaction) on the host
-    clock; the core's and the SBR planes' copies to the device, the core
-    step, the SBR step and the copy back with CUDA events on their
-    streams.  Returns seconds (parse, h2d core, h2d sbr, core, sbr, d2h)."""
+    (native core parse, SBR and PS parse and pack, plane compaction) on the
+    host clock; the copies to the device of the core, the SBR planes and
+    the PS planes (0 without PS), the core step, the SBR (+ PS) step and the
+    copy back with CUDA events on their streams.  Returns seconds (host,
+    h2d core, h2d SBR planes, h2d PS planes, core, SBR (+ PS), d2h)."""
     splits = []
     for _ in range(runs):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(12)]
         p0 = time.perf_counter()
         parsed, dense, ctx = dec._he_host_phase(chunk, True)
         parse_s = time.perf_counter() - p0
@@ -923,26 +1138,31 @@ def he_stage_split(torch, dec, chunk, runs: int = 3):
         ev[2].record(dec._h2d_stream)
         dev_dense = dec._upload_dense(dense, ctx["slot"])
         ev[3].record(dec._h2d_stream)
-        ev[4].record(dec._compute_stream)
-        core = dec._device_step(up, out_int16=False)
-        ev[5].record(dec._compute_stream)
-        pcm2, seeds = dec._sbr_dispatch(core, dev_dense, ctx, True)
+        ev[4].record(dec._h2d_stream)
+        if ctx["ps_enabled"]:
+            ctx["ps_planes"] = dec._upload_ps(ctx)
+        ev[5].record(dec._h2d_stream)
         ev[6].record(dec._compute_stream)
+        core = dec._device_step(up, out_int16=False)
+        ev[7].record(dec._compute_stream)
+        pcm2, seeds = dec._sbr_dispatch(core, dev_dense, ctx, True)
+        ev[8].record(dec._compute_stream)
         torch.cuda.synchronize()
-        ev[7].record(dec._d2h_stream)
+        ev[9].record(dec._d2h_stream)
         dec._sbr_download(pcm2, seeds, ctx, core)
-        ev[8].record(dec._d2h_stream)
+        ev[10].record(dec._d2h_stream)
         torch.cuda.synchronize()
         splits.append((parse_s, *(ev[a].elapsed_time(ev[b]) / 1e3 for a, b in
-                                  ((0, 1), (2, 3), (4, 5), (5, 6), (7, 8)))))
+                                  ((0, 1), (2, 3), (4, 5), (6, 7), (7, 8),
+                                   (9, 10)))))
     return tuple(float(v) for v in np.median(np.array(splits), axis=0))
 
 
-def he_host_profile(dec, chunk, top: int = 8) -> None:
-    """Where one HE-512 host phase spends its time: cProfile's functions
-    with the most own time over one call (after one unprofiled call; the
-    profiler's own cost inflates the many small Python calls, so the
-    shares are indicative)."""
+def he_host_profile(name: str, dec, chunk, top: int = 8) -> None:
+    """Where one host phase spends its time: cProfile's functions with the
+    most own time over one call (after one unprofiled call; the profiler's
+    own cost inflates the many small Python calls, so the shares are
+    indicative)."""
     import cProfile
     import pstats
     dec._he_host_phase(chunk, True)
@@ -954,29 +1174,26 @@ def he_host_profile(dec, chunk, top: int = 8) -> None:
     wall = time.perf_counter() - t0
     stats = pstats.Stats(prof).stats
     rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
-    say(f"he-512: host phase under cProfile {wall:.3f} s; own time by "
+    say(f"{name}: host phase under cProfile {wall:.3f} s; own time by "
         "function:")
-    for (path, line, name), (_, ncalls, tottime, cumtime, _) in rows[:top]:
-        say(f"he-512:   {tottime:7.3f} s own, {cumtime:7.3f} s cum, "
-            f"x{ncalls:<6d} {pathlib.Path(path).name}:{line} {name}")
+    for (path, line, fn), (_, ncalls, tottime, cumtime, _) in rows[:top]:
+        say(f"{name}:   {tottime:7.3f} s own, {cumtime:7.3f} s cum, "
+            f"x{ncalls:<6d} {pathlib.Path(path).name}:{line} {fn}")
 
 
-def phase_he_serving(torch) -> dict:
-    """HE-512: 512 HE-AAC v1 stereo streams (C = 1024 slots; 22.05 kHz core,
-    44.1 kHz out) from he_serving_corpus(4, 4.0, 8), bench_he's
-    construction, chunk_frames=8, through decode_he_pipelined with int16
-    PCM after one warm-up chunk, HE_WINDOWS runs of HE_MAX_CHUNKS chunks,
-    each with a fresh decoder; launch counts set to 0 just before the runs
-    and read just after, peak device memory over the runs.  Then every
-    chunk again: the PCM against the same route's step, the core (the tail
-    kernel) against the plain core route; then one chunk's stage split and
-    a profile of one host phase."""
+def he_serving(torch, name: str, config, corpus, ps: bool) -> dict:
+    """One HE serving cell: N_STREAMS streams (the corpus's payload lists in
+    turn) in chunks of HE_CHUNK frames through decode_he_pipelined with
+    int16 PCM after one warm-up chunk, HE_WINDOWS runs of HE_MAX_CHUNKS
+    chunks, each with a fresh decoder; launch counts set to 0 just before
+    the runs and read just after, peak device memory over the runs.  Then
+    every chunk again on two decoders fed one host phase: the kernel route
+    (must give the pipelined runs' PCM within 1 LSB) and the plain core
+    route (its int16 PCM held to the HE bound, he_i16_check); then one
+    chunk's stage split and a profile of one host phase.  With `ps`, mono
+    HE-AAC v2 streams with a spare slot each (cce_slots=1)."""
     import aacjax_torch
-    from aacjax_torch.testing import assert_pcm_close, he_serving_corpus
-    t0 = time.perf_counter()
-    config, corpus = he_serving_corpus(4, 4.0, HE_CHUNK)
-    say(f"he-512: corpus of {len(corpus)} unique HE-AAC v1 stereo streams x "
-        f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
+    from aacjax_torch.testing import assert_pcm_close
     per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
     n_chunks = min(len(corpus[0]) // HE_CHUNK, HE_MAX_CHUNKS)
     chunks = [[p[k * HE_CHUNK:(k + 1) * HE_CHUNK] for p in per_stream]
@@ -984,7 +1201,8 @@ def phase_he_serving(torch) -> dict:
 
     def decoder():
         return aacjax_torch.BatchDecoder([config] * N_STREAMS,
-                                         chunk_frames=HE_CHUNK)
+                                         chunk_frames=HE_CHUNK,
+                                         cce_slots=1 if ps else 0)
     decoder().step_he_raw(chunks[0], out_int16=True)       # warm-up chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -995,27 +1213,26 @@ def phase_he_serving(torch) -> dict:
         t1 = time.perf_counter()
         outs = list(dec.decode_he_pipelined(iter(chunks), out_int16=True))
         walls.append(time.perf_counter() - t1)
-        check(len(outs) == n_chunks, "he-512: decode_he_pipelined lost chunks")
-        check(all(o.dtype == np.int16 for o in outs), "he-512: not int16")
+        check(len(outs) == n_chunks, f"{name}: decode_he_pipelined lost "
+              "chunks")
+        check(all(o.dtype == np.int16 for o in outs), f"{name}: not int16")
         check(not any(st.failed for st in dec.streams),
-              f"he-512: a stream failed: "
+              f"{name}: a stream failed: "
               f"{[st.last_error for st in dec.streams if st.failed][:1]}")
-        check(not any(dec._sbr_np_sticky), "he-512: a slot went sticky")
+        check(not any(dec._sbr_np_sticky), f"{name}: a slot went sticky")
+        if ps:
+            check(dec._ps_pair[::2] == list(range(1, 2 * N_STREAMS, 2)),
+                  f"{name}: the PS pairs are not the spare slots")
         runs.append(outs)
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    # every chunk again on two decoders from one host phase: the kernel
-    # route (must give the pipelined runs' PCM) and the plain core route
-    # (the tail kernel against its plain version on the HE core, f32 in and
-    # out, at this shape); the SBR output of the plain core is reported
     ver, plain = decoder(), decoder()
     plain._sbr_init()
-    worst, core_err, n_diff, n_all, n_tns = 0.0, 0.0, 0, 0, 0
-    amp_max, amp_diff = 0, 0
+    worst, core_err, n_diff, n_all, n_tns, pairs = 0.0, 0.0, 0, 0, 0, []
     for k, chunk in enumerate(chunks):
         parsed, dense, ctx = ver._he_host_phase(chunk, True)
-        check(bool(parsed["_spec_qsf"]), f"he-512: chunk {k} did not send "
+        check(bool(parsed["_spec_qsf"]), f"{name}: chunk {k} did not send "
               "the q/sf spectra")
         n_tns += bool(parsed["_has_tns"])
         core_k = ver._device_step(ver._upload_batch(dict(parsed)),
@@ -1025,48 +1242,78 @@ def phase_he_serving(torch) -> dict:
         torch.cuda.synchronize()
         core_err = max(core_err, assert_pcm_close(
             core_k.cpu().numpy(), core_p.cpu().numpy(), False,
-            f"he-512 core chunk {k}"))
+            f"{name} core chunk {k}"))
         out_k = ver._sbr_stage(core_k, dense, ctx, out_int16=True).copy()
         out_p = plain._sbr_stage(core_p, dense, ctx, out_int16=True).copy()
         torch.cuda.synchronize()
         for w, outs in enumerate(runs):
             worst = max(worst, assert_pcm_close(outs[k], out_k, True,
-                                                f"he-512 run {w} chunk {k}"))
+                                                f"{name} run {w} chunk {k}"))
             n_diff += int((outs[k] != out_k).sum())
             n_all += out_k.size
-        d = np.abs(out_k.astype(np.int32) - out_p.astype(np.int32))
-        amp_max, amp_diff = max(amp_max, int(d.max())), amp_diff + int(
-            (d > 0).sum())
-    for kernel, want in (("tail", HE_WINDOWS * n_chunks),
-                         ("tns", HE_WINDOWS * n_tns)):
-        check(counts[kernel] == want, f"he-512: {counts[kernel]} {kernel} "
+        pairs.append((out_k, out_p, k * HE_CHUNK))
+    stats = he_i16_check(pairs, f"{name}: kernel route against the plain "
+                         "core route")
+    expect = {"tail": HE_WINDOWS * n_chunks, "tns": HE_WINDOWS * n_tns,
+              "ps_decorr": HE_WINDOWS * n_chunks if ps else 0}
+    for kernel, want in expect.items():
+        check(counts[kernel] == want, f"{name}: {counts[kernel]} {kernel} "
               f"launches, expected {want}")
-    say(f"he-512: launches {counts} for {HE_WINDOWS} x {n_chunks} chunks "
+    say(f"{name}: launches {counts} for {HE_WINDOWS} x {n_chunks} chunks "
         f"({n_tns} with TNS); peak device memory {peak:.2f} GiB")
-    say(f"he-512: all {n_chunks} chunks of all {N_STREAMS} streams in all "
+    say(f"{name}: all {n_chunks} chunks of all {N_STREAMS} streams in all "
         f"{HE_WINDOWS} runs equal the same route's step within 1 LSB on < 2% "
         f"of samples (max delta {worst}, {n_diff / n_all:.6f} of samples "
         f"differ); q/sf spectra and compact SBR planes uploaded; the core "
         f"(tail kernel, f32) matches the plain core route within 5e-5 * "
-        f"max(1, max|ref|) (max delta {core_err:.4g}); through the SBR "
-        f"program the plain core's int16 PCM differs by up to {amp_max} LSB "
-        f"on {amp_diff / n_all * HE_WINDOWS:.6f} of samples (the gains "
-        f"divide by near-empty source bands: the corpus is low-passed at "
-        f"3.6 kHz)")
+        f"max(1, max|ref|) (max delta {core_err:.4g}); the int16 PCM of the "
+        f"plain core route differs by up to {stats['onset'][0]} LSB on "
+        f"{stats['onset'][1]:.5f} of the samples of frames 0-1 (bound "
+        f"{HE_I16_ONSET}) and by up to {stats['steady'][0]} LSB on "
+        f"{stats['steady'][1]:.6f} of the later frames' (bound "
+        f"{HE_I16_STEADY})")
     audio_s = N_STREAMS * n_chunks * HE_CHUNK * 2048 / 44100.0
     rtx = [audio_s / w for w in walls]
-    say(f"he-512: he_aac_aggregate_realtime_x {float(np.median(rtx)):.1f} "
-        f"(median of {HE_WINDOWS} runs of {audio_s:.1f} s of audio at "
-        f"44.1 kHz; runs {[round(x, 1) for x in rtx]}, walls "
-        f"{[round(w, 3) for w in walls]} s)")
+    metric = ("he_aac_v2_aggregate_realtime_x" if ps
+              else "he_aac_aggregate_realtime_x")
+    say(f"{name}: {metric} {float(np.median(rtx)):.1f} (median of "
+        f"{HE_WINDOWS} runs of {audio_s:.1f} s of audio at 44.1 kHz; runs "
+        f"{[round(x, 1) for x in rtx]}, walls {[round(w, 3) for w in walls]} "
+        "s)")
     stages = he_stage_split(torch, decoder(), chunks[min(1, n_chunks - 1)])
-    he_host_profile(decoder(), chunks[0])
-    say(f"he-512: wall per chunk {[round(w / n_chunks, 4) for w in walls]} s; "
+    he_host_profile(name, decoder(), chunks[0])
+    say(f"{name}: wall per chunk {[round(w / n_chunks, 4) for w in walls]} s; "
         f"per-chunk stages ({audio_s / n_chunks:.1f} s of audio): host phase "
-        "(core parse, SBR parse and pack, compaction) {:.4f} s, h2d core "
-        "{:.4f} s, h2d SBR planes {:.4f} s, core compute {:.4f} s, SBR "
-        "compute {:.4f} s, d2h {:.4f} s".format(*stages))
+        "(core parse, SBR / PS parse and pack, compaction) {:.4f} s, h2d "
+        "core {:.4f} s, h2d SBR planes {:.4f} s, h2d PS planes {:.4f} s, core "
+        "compute {:.4f} s, SBR{} compute {:.4f} s, d2h {:.4f} s".format(
+            *stages[:5], " + PS" if ps else "", *stages[5:]))
     return counts
+
+
+def phase_he_serving(torch) -> dict:
+    """HE-512: 512 HE-AAC v1 stereo streams (C = 1024 slots; 22.05 kHz core,
+    44.1 kHz out) from he_serving_corpus(4, 4.0, 8), bench_he's
+    construction (he_serving)."""
+    from aacjax_torch.testing import he_serving_corpus
+    t0 = time.perf_counter()
+    config, corpus = he_serving_corpus(4, 4.0, HE_CHUNK)
+    say(f"he-512: corpus of {len(corpus)} unique HE-AAC v1 stereo streams x "
+        f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
+    return he_serving(torch, "he-512", config, corpus, ps=False)
+
+
+def phase_ps_serving(torch) -> dict:
+    """PS-512: 512 HE-AAC v2 mono streams from ps_serving_corpus(4, 4.0, 8),
+    bench_he(ps=True)'s construction, decoded as stereo with a spare slot
+    each (cce_slots=1: C = 1024 slots, 512 sources and 512 pairs): one tail
+    and one decorrelator launch a chunk (he_serving)."""
+    from aacjax_torch.testing import ps_serving_corpus
+    t0 = time.perf_counter()
+    config, corpus = ps_serving_corpus(4, 4.0, HE_CHUNK)
+    say(f"ps-512: corpus of {len(corpus)} unique HE-AAC v2 mono streams x "
+        f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
+    return he_serving(torch, "ps-512", config, corpus, ps=True)
 
 
 def phase_he_routes(torch) -> dict:
@@ -1124,6 +1371,103 @@ def phase_he_routes(torch) -> dict:
     return counts
 
 
+def phase_ps_routes(torch) -> dict:
+    """HE-AAC v2 beyond the serving pass, each on the card against the same
+    call on the CPU (f32 within HE_ROUTE_TOL): decode_adts on a 20-band and
+    a 34-band stream with IPD/OPD, a mixed 20/34 batch through the dual
+    program, a band-scheme flip (sticky for one chunk, re-adopted), the
+    streaming AACDecoder, and save_state / restore_state mid-stream."""
+    import aacjax_torch
+    from aacjax_torch import testing as TI
+    specs = TI.ps_specs()
+    reset_launches()
+    for name in ("20-band", "34-band"):
+        stream = TI.ps_stream(specs[name])
+        got, rate = aacjax_torch.decode_adts(stream, chunk_frames=4)
+        want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4,
+                                           device="cpu")
+        check(rate == 44100 and got.shape[1] == 2, f"ps decode_adts {name}: "
+              f"{got.shape} at {rate} Hz")
+        err = he_close(got, want, f"ps decode_adts {name}", HE_ROUTE_TOL)
+        say(f"ps routes: decode_adts {name} with IPD/OPD: {got.shape} at "
+            f"{rate} Hz matches the CPU (max err {err:.4g} * max(1, "
+            "max|ref|))")
+
+    def batch(streams, chunk, device, hook=None):
+        pays = [TI.adts_payloads(st) for st in streams]
+        cfg = TI.parse_asc(TI.adts.synthesize_cookie(
+            TI.adts.split_frames(streams[0])[0][0]))
+        d = aacjax_torch.BatchDecoder([cfg] * len(streams),
+                                      chunk_frames=chunk, cce_slots=1,
+                                      device=device)
+        outs = []
+        for k in range(min(len(p) for p in pays) // chunk):
+            outs.append(d.step_he_raw([p[k * chunk:(k + 1) * chunk]
+                                       for p in pays]))
+            if hook:
+                hook(d)
+        return np.concatenate(outs, axis=1), d
+
+    mixed = [TI.ps_stream(specs["20-band 2 env"], 6, 1),
+             TI.ps_stream(specs["34-band 2 env"], 6, 2)]
+    got, d = batch(mixed, 3, "cuda")
+    check(not any(d._sbr_np_sticky) and d._ps_slot_is34[:3:2] == [False, True],
+          "ps mixed batch: a slot went sticky, or the modes are wrong")
+    err = he_close(got, batch(mixed, 3, "cpu")[0], "ps mixed 20/34",
+                   HE_ROUTE_TOL)
+    say(f"ps routes: a 20-band and a 34-band stream in one batch (the dual "
+        f"program, no slot sticky) match the CPU (max err {err:.4g})")
+    sticky = []
+    flip = [TI.ps_flip_stream([2] * 4 + [1] * 4)]
+    got, d = batch(flip, 2, "cuda", lambda d: sticky.append(
+        d._sbr_np_sticky[0]))
+    check(sticky == [False, False, True, False] and d._ps_slot_is34[0] is
+          False, f"ps flip: sticky per chunk {sticky}")
+    err = he_close(got, batch(flip, 2, "cpu")[0], "ps flip", HE_ROUTE_TOL)
+    say(f"ps routes: a 34 -> 20-band flip (sticky in chunk 2 only, "
+        f"re-adopted into the 20-band state) matches the CPU (max err "
+        f"{err:.4g})")
+
+    stream = TI.ps_stream(specs["20-band"], 6, 3)
+
+    def streaming(device):
+        d = aacjax_torch.AACDecoder(device=device)
+        d.feed(stream)
+        out = []
+        while (c := d.read_chunk()) is not None:
+            out.append(c.reshape(-1, d.output_channels))
+        return np.concatenate(out)
+    got = streaming("cuda")
+    err = he_close(got, streaming("cpu"), "ps AACDecoder", HE_ROUTE_TOL)
+    say(f"ps routes: AACDecoder {got.shape} matches the CPU (max err "
+        f"{err:.4g})")
+    pays = TI.adts_payloads(stream)
+    cfg = TI.parse_asc(TI.adts.synthesize_cookie(
+        TI.adts.split_frames(stream)[0][0]))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        d = aacjax_torch.BatchDecoder([cfg], chunk_frames=3, cce_slots=1,
+                                      device=device)
+        d.step_he_raw([pays[:3]])
+        d2 = aacjax_torch.BatchDecoder([cfg], chunk_frames=3, cce_slots=1,
+                                       device=device)
+        d2.restore_state(d.save_state())
+        outs[device] = d2.step_he_raw([pays[3:6]])
+        check(np.array_equal(outs[device], d.step_he_raw([pays[3:6]])),
+              f"ps save/restore on {device}: the restored decoder differs")
+    err = he_close(outs["cuda"], outs["cpu"], "ps after restore",
+                   HE_ROUTE_TOL)
+    say(f"ps routes: save_state / restore_state mid-stream resumes equal to "
+        f"the original, on the card matching the CPU (max err {err:.4g})")
+    counts = read_launches()
+    check(counts["ps_decorr"] > 0, "ps routes did not run the decorrelator "
+          "kernel")
+    return counts
+
+
+T0 = time.perf_counter()
+
+
 def main() -> None:
     if not (REPO / "aacjax_torch" / "__init__.py").exists():
         fail("aacjax_torch is not next to chip_smoke.py")
@@ -1163,11 +1507,12 @@ def main() -> None:
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)
     phase_he_checks(torch, dev)
+    phase_ps_checks(torch, dev)
     # the launches of every main path, each counted from 0 over its own run
     launches = dict.fromkeys(KERNELS, 0)
     for phase in (phase_slice, phase_slice_tns, phase_slice_main,
                   phase_slice_mc, phase_decode_adts, phase_he_serving,
-                  phase_he_routes):
+                  phase_he_routes, phase_ps_serving, phase_ps_routes):
         for kernel, n in phase(torch).items():
             launches[kernel] += n
     for kernel in KERNELS:
@@ -1180,12 +1525,15 @@ def main() -> None:
             "synthesis": (src + "filterbank.cu",
                           "aacjax/kernels/pallas_synth.py:112"),
             "tns": (src + "tns.cu", "aacjax/kernels/pipeline.py:334"),
-            "pred": (src + "pred.cu", "aacjax/kernels/pipeline.py:219")}
+            "pred": (src + "pred.cu", "aacjax/kernels/pipeline.py:219"),
+            "ps_decorr": (src + "ps_decorr.cu",
+                          "aacjax/kernels/ps_batch.py:366")}
     keys = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=k, route="cuda", source=meta[k][0],
                     replaces=meta[k][1], **{q: results[k][q] for q in keys})
                for k in meta]
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -247,23 +247,38 @@ def test_streaming_decoder_without_configuration():
 
 
 def test_he_content_raises_not_implemented_everywhere():
-    """HE-AAC v2 (Parametric Stereo, ROADMAP Queue 1 item 9) is the only
-    content the port refuses: implicit signalling through decode_adts and
-    the streaming decoder, explicit signalling through a cookie and through
-    LOAS.  It raises instead of decoding the stream as mono."""
+    """HE-AAC v2 (Parametric Stereo, ROADMAP Queue 1 item 9), once the only
+    content the port refused, decodes as stereo equal to aacjax: implicit
+    signalling through decode_adts and the streaming decoder, explicit
+    signalling through a cookie and through LOAS."""
     ps = TI.he_ps_stream()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        aacjax_torch.decode_adts(ps, device="cpu")
-    dec = aacjax_torch.AACDecoder(device="cpu")
-    dec.feed(ps)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dec.read_chunk()
+
+    def drain(mod, **kw):
+        dec = mod.AACDecoder(**kw)
+        dec.feed(data)
+        out = []
+        while (c := dec.read_chunk()) is not None:
+            out.append(c.reshape(-1, dec.output_channels))
+        return np.concatenate(out), dec.output_sample_rate
+
     raw = TI.adts_payloads(ps)
     explicit = make_asc(2, 7, 1, sbr=True)
-    dec = aacjax_torch.AACDecoder(cookie=explicit, device="cpu")
-    dec.feed(b"".join(raw))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dec.read_chunk()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        aacjax_torch.decode_loas(
-            enc.loas_stream(raw, parse_asc(explicit)), device="cpu")
+    loas = enc.loas_stream(raw, parse_asc(explicit))
+    cases = [("decode_adts", aacjax_torch.decode_adts(ps, chunk_frames=4,
+                                                      device="cpu"),
+              aacjax.decode_adts(ps, chunk_frames=4)),
+             ("decode_loas", aacjax_torch.decode_loas(loas, device="cpu"),
+              aacjax.decode_loas(loas))]
+    data = ps
+    cases.append(("AACDecoder", drain(aacjax_torch, device="cpu"),
+                  drain(aacjax)))
+    data = b"".join(raw)
+    cases.append(("AACDecoder, explicit cookie",
+                  drain(aacjax_torch, cookie=explicit, device="cpu"),
+                  drain(aacjax, cookie=explicit)))
+    for what, (got, rate), (want, want_rate) in cases:
+        assert rate == want_rate == 44100, what
+        assert got.shape == want.shape and got.shape[1] == 2, what
+        err = float(np.abs(got - want).max()) / max(1.0, float(
+            np.abs(want).max()))
+        assert err <= 2e-4, (what, err)

@@ -15,7 +15,8 @@ by FFT, the plain versions by the reference's dense product.  TNS is held
 to 1e-6 * max|x|: the float-float form exists for that accuracy (the kernel
 keeps the plain version's roundings, so the two are in fact equal up to the
 sign of a zero).  The predictor kernel is held to its plain version bit for
-bit.  This file imports no JAX.
+bit, and so is the Parametric Stereo decorrelator kernel; the HE and PS
+routes are held to the CPU.  This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ import torch
 
 import aacjax_torch
 from aacjax_torch import testing as TI
-from aacjax_torch.kernels import pred, synth, tail, tns
+from aacjax_torch.kernels import pred, ps_decorr, synth, tail, tns
 
 pytestmark = pytest.mark.cuda
 
@@ -690,3 +691,138 @@ def test_he_routes_on_card_match_cpu(dev):
         assert [d._sbr_np_sticky[0] for d in decs] == [k == 1] * 2, k
         _he_close(outs[0], outs[1], f"header change chunk {k}",
                   HE_ROUTE_TOL)
+
+
+# -- HE-AAC v2 (Parametric Stereo) ------------------------------------------------
+def _decorr_args(dev, seed, B, S, is34):
+    from aacjax_torch.kernels import ps_batch as PB
+    c = PB.consts_np(is34)
+    arrays = TI.ps_decorr_inputs(seed, B, S, is34)
+    return _on(dev, arrays + [c["qf_r"], c["qf_i"], c["ag"]])
+
+
+@pytest.mark.parametrize("B,T", [(1024, 8), (5, 2), (1, 1)])
+@pytest.mark.parametrize("is34", [False, True])
+def test_ps_decorr_kernel_equals_plain_bit_for_bit(dev, is34, B, T):
+    """Two calls with the state carried; every output and state bit for
+    bit (one f32 operation at a time in the same order)."""
+    args = _decorr_args(dev, B + T + is34, B, 32 * T, is34)
+    state_k = state_p = args[3:8]
+    for k in range(2):
+        x = args[:3] if k == 0 else [a.flip(1).contiguous() for a in args[:3]]
+        before = ps_decorr.launches
+        got = ps_decorr.decorrelate(*x, *state_k, *args[8:])
+        assert ps_decorr.launches == before + 1
+        want = ps_decorr.decorrelate_ref(*x, *state_p, *args[8:])
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert _bits_equal(g, w), (k, i, float((g - w).abs().max()))
+        state_k, state_p = got[1:4] + got[6:], want[1:4] + want[6:]
+        assert bool(torch.isfinite(got[0]).all())
+
+
+def test_ps_decorr_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    args = _decorr_args(dev, 1, 4, 32, False)
+    with pytest.raises(TypeError, match="pw"):
+        ps_decorr.decorrelate(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="ap_r"):
+        ps_decorr.decorrelate(*args[:6], args[6][:, :-1], *args[7:])
+    with pytest.raises(ValueError, match="xr"):
+        ps_decorr.decorrelate(args[0], args[1].transpose(1, 2), *args[2:])
+    with pytest.raises(ValueError, match="on cpu"):
+        ps_decorr.decorrelate(*args[:8], *(a.cpu() for a in args[8:]))
+
+
+def test_decode_he_pipelined_ps_on_card_matches_cpu(dev):
+    """16 HE-AAC v2 streams (C = 32 slots), 2 chunks of 8: one tail and one
+    decorrelator launch a chunk; int16 PCM equals step_he_raw's on the card
+    and f32 PCM matches the CPU."""
+    config, corpus = TI.ps_serving_corpus(2, 1.0, 16)
+    chunks = [[corpus[i % 2][8 * k:8 * (k + 1)] for i in range(16)]
+              for k in range(2)]
+
+    def decoder(device):
+        return aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
+                                         cce_slots=1, device=device)
+    before = (tail.launches, ps_decorr.launches)
+    got = list(decoder(dev).decode_he_pipelined(iter(chunks), out_int16=True))
+    assert (tail.launches, ps_decorr.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    step = decoder(dev)
+    for g, c in zip(got, chunks, strict=True):
+        TI.assert_pcm_close(g, step.step_he_raw(c, out_int16=True), True)
+    got = decoder(dev).decode_he_pipelined(iter(chunks), out_int16=False)
+    want = decoder("cpu").decode_he_pipelined(iter(chunks), out_int16=False)
+    for g, w in zip(got, want, strict=True):
+        _he_close(g, w, "pipelined", HE_ROUTE_TOL)
+
+
+def test_ps_routes_on_card_match_cpu(dev):
+    """decode_adts on a 20-band and a 34-band stream with IPD/OPD, a mixed
+    20/34 batch through the dual program, a band-scheme flip (sticky for
+    one chunk, re-adopted), the streaming decoder and a save / restore
+    mid-stream, each on the card against the same calls on the CPU."""
+    specs = TI.ps_specs()
+    for name in ("20-band", "34-band"):
+        stream = TI.ps_stream(specs[name])
+        got, rate = aacjax_torch.decode_adts(stream, chunk_frames=4,
+                                             device=dev)
+        want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4,
+                                           device="cpu")
+        assert rate == 44100 and got.shape[1] == 2
+        _he_close(got, want, f"decode_adts {name}", HE_ROUTE_TOL)
+
+    def batch(streams, chunk, device, hook=None):
+        pays = [TI.adts_payloads(s) for s in streams]
+        cfg = TI.parse_asc(TI.adts.synthesize_cookie(
+            TI.adts.split_frames(streams[0])[0][0]))
+        d = aacjax_torch.BatchDecoder([cfg] * len(streams), chunk_frames=chunk,
+                                      cce_slots=1, device=device)
+        n = min(len(p) for p in pays) // chunk
+        outs = []
+        for k in range(n):
+            outs.append(d.step_he_raw([p[k * chunk:(k + 1) * chunk]
+                                       for p in pays]))
+            if hook:
+                hook(k, d)
+        return np.concatenate(outs, axis=1), d
+
+    mixed = [TI.ps_stream(specs["20-band 2 env"], 6, 1),
+             TI.ps_stream(specs["34-band 2 env"], 6, 2)]
+    got, d = batch(mixed, 3, dev)
+    assert not any(d._sbr_np_sticky) and d._ps_slot_is34[2] is True
+    _he_close(got, batch(mixed, 3, "cpu")[0], "mixed 20/34", HE_ROUTE_TOL)
+    sticky = []
+    flip = [TI.ps_flip_stream([2] * 4 + [1] * 4)]
+    got, d = batch(flip, 2, dev, lambda k, d: sticky.append(
+        d._sbr_np_sticky[0]))
+    assert sticky == [False, False, True, False]
+    _he_close(got, batch(flip, 2, "cpu")[0], "flip", HE_ROUTE_TOL)
+
+    stream = TI.ps_stream(specs["20-band"], 6, 3)
+
+    def streaming(device):
+        d = aacjax_torch.AACDecoder(device=device)
+        d.feed(stream)
+        out = []
+        while (c := d.read_chunk()) is not None:
+            out.append(c.reshape(-1, d.output_channels))
+        return np.concatenate(out)
+    got = streaming(dev)
+    assert got.shape[1] == 2
+    _he_close(got, streaming("cpu"), "AACDecoder", HE_ROUTE_TOL)
+
+    pays = TI.adts_payloads(stream)
+    cfg = TI.parse_asc(TI.adts.synthesize_cookie(
+        TI.adts.split_frames(stream)[0][0]))
+    outs = {}
+    for device in (dev, "cpu"):
+        d = aacjax_torch.BatchDecoder([cfg], chunk_frames=3, cce_slots=1,
+                                      device=device)
+        d.step_he_raw([pays[:3]])
+        d2 = aacjax_torch.BatchDecoder([cfg], chunk_frames=3, cce_slots=1,
+                                       device=device)
+        d2.restore_state(d.save_state())
+        outs[device] = d2.step_he_raw([pays[3:6]])
+        np.testing.assert_array_equal(outs[device], d.step_he_raw([pays[3:6]]))
+    _he_close(outs[dev], outs["cpu"], "after restore", HE_ROUTE_TOL)

@@ -22,7 +22,8 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "host/sbr.py", "host/sbr_tables.npz", "host/ps.py",
           "host/ps_tables.npz", "host/native.py", "host/aac_960_tables.npz",
           "host/latm.py", "host/ltp_batch.py", "host/refdec.py",
-          "host/sbr_pack.py", "host/sbr_decode.py",
+          "host/sbr_pack.py", "host/sbr_decode.py", "host/ps_decode.py",
+          "host/ps_pack.py",
           "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
           "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
@@ -70,6 +71,11 @@ assert np.isfinite(pcm).all() and np.abs(pcm).max() > 0.1
 dec = aacjax_torch.AACDecoder(device="cpu")
 dec.feed(he)
 assert dec.read_chunk().shape == (2 * 2048,) and dec.output_sample_rate == 44100
+# HE-AAC v2: the SBR + PS program (a mono stream decoded as stereo)
+pcm, rate = aacjax_torch.decode_adts(TI.he_ps_stream(3), chunk_frames=2,
+                                     device="cpu")
+assert rate == 44100 and pcm.shape[1] == 2 and np.isfinite(pcm).all()
+assert np.abs(pcm[:, 0] - pcm[:, 1]).max() > 0.01
 loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
 assert loaded == [], loaded
 print("ok", round(snr, 1))
@@ -171,7 +177,8 @@ def test_make_corpus_matches_bench():
 def test_kernel_modules_import_without_toolchain():
     """Importing the kernel modules builds nothing and needs no triton."""
     code = ("import sys, aacjax_torch.kernels.tail, aacjax_torch.kernels.synth,"
-            " aacjax_torch.kernels.tns, aacjax_torch.kernels.pred\n"
+            " aacjax_torch.kernels.tns, aacjax_torch.kernels.pred,"
+            " aacjax_torch.kernels.ps_decorr, aacjax_torch.kernels.ps_batch\n"
             "from aacjax_torch.kernels import _build\n"
             "assert _build.lib.cache_info().currsize == 0\n"
             "assert 'triton' not in sys.modules\n"

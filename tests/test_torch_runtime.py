@@ -157,23 +157,42 @@ def test_state_handover_from_jax():
 
 
 def test_he_stream_not_implemented():
-    """HE-AAC v2 (ps_data) raises, naming its ROADMAP item."""
+    """HE-AAC v2 (ps_data; ROADMAP Queue 1 item 9, once refused) decodes
+    through decode_adts as stereo at 44.1 kHz, equal to aacjax."""
     from aacjax_torch.testing import he_ps_stream
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aacjax_torch.decode_adts(he_ps_stream(), device="cpu")
+    got, rate = aacjax_torch.decode_adts(he_ps_stream(), chunk_frames=4,
+                                         device="cpu")
+    want, want_rate = aacjax.decode_adts(he_ps_stream(), chunk_frames=4)
+    assert rate == want_rate == 44100 and got.shape == want.shape
+    assert got.shape[1] == 2
+    assert float(np.abs(got - want).max()) <= 2e-4 * max(
+        1.0, float(np.abs(want).max()))
 
 
 def test_restore_rejects_non_core_state():
-    """The PS half of a saved state is not ported; the predictor state
-    and a decoder on the python route are."""
+    """A saved state with Parametric Stereo state round-trips (the next
+    chunk after a restore equals the original decoder's); a predictor state
+    of the wrong shape is refused, the right one taken, and a decoder on
+    the python route is one."""
+    from aacjax_torch.testing import he_ps_stream
+    ps = adts_payloads(he_ps_stream(4))
+    config = TI.parse_asc(TI.adts.synthesize_cookie(
+        TI.adts.split_frames(he_ps_stream(1))[0][0]))
+    src = aacjax_torch.BatchDecoder([config], chunk_frames=2, cce_slots=1,
+                                    use_native=False, device="cpu")
+    src.step_he_raw([ps[:2]])
+    saved = src.save_state()
+    assert saved["sbr"]["ps_enabled"] and saved["sbr"]["ps_pair"] == [1, -1]
+    dst = aacjax_torch.BatchDecoder([config], chunk_frames=2, cce_slots=1,
+                                    use_native=False, device="cpu")
+    dst.restore_state(saved)
+    np.testing.assert_array_equal(dst.step_he_raw([ps[2:4]]),
+                                  src.step_he_raw([ps[2:4]]))
+
     configs, _ = make_lc_payload_chunks(n_streams=1, chunk_frames=4)
     dec = aacjax_torch.BatchDecoder(configs, chunk_frames=4, device="cpu")
     state = dec.save_state()
-    state["sbr"] = {"ps_enabled": True}
-    with pytest.raises(NotImplementedError, match="item"):
-        dec.restore_state(state)
     assert torch.equal(dec.overlap, torch.zeros_like(dec.overlap))
-    del state["sbr"]
     state["pred_state"] = np.zeros((3, 672, 6), np.float32)
     with pytest.raises(ValueError, match="pred_state"):
         dec.restore_state(state)

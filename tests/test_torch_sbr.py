@@ -9,7 +9,8 @@
   * the sticky re-adoption cases of test_readopt without PS (a mid-chunk
     SBR header change; mixed headers in one batch);
   * `decode_adts`, `decode_loas` and the streaming `AACDecoder` on HE
-    streams; ps_data raising NotImplementedError.
+    streams; a stream with ps_data decoding as stereo (the PS path itself is
+    held in test_torch_ps.py).
 
 Tolerances: f32 PCM and state within 2e-4 * max(1, max|ref|) (the envelope
 gains divide by the patched bands' energies, so reassociated sums can grow
@@ -430,15 +431,22 @@ def test_decode_loas_he_matches_reference(signalling):
                                      pytest.param("step_he_raw",
                                                   marks=needs_native)])
 def test_ps_data_raises_not_implemented(surface):
-    """HE-AAC v2 is ROADMAP Queue 1 item 9: a stream with ps_data raises
-    instead of decoding as mono."""
+    """HE-AAC v2 (ROADMAP Queue 1 item 9, once refused here): a mono stream
+    with ps_data decodes as stereo, equal to aacjax, on each surface."""
     stream = TI.he_ps_stream()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        if surface == "decode_adts":
-            aacjax_torch.decode_adts(stream, device="cpu")
-        elif surface == "AACDecoder":
-            _stream_decode(aacjax_torch, stream, device="cpu")
-        else:
-            dec = BatchDecoder([_config(stream)], chunk_frames=T,
-                               cce_slots=1, device="cpu")
-            dec.step_he_raw([_payloads(stream)[:T]])
+    if surface == "decode_adts":
+        got = aacjax_torch.decode_adts(stream, chunk_frames=T, device="cpu")
+        want = aacjax.decode_adts(stream, chunk_frames=T)
+    elif surface == "AACDecoder":
+        got = _stream_decode(aacjax_torch, stream, device="cpu")
+        want = _stream_decode(aacjax, stream)
+    else:
+        group = [_payloads(stream)[:T]]
+        dec = BatchDecoder([_config(stream)], chunk_frames=T, cce_slots=1,
+                           device="cpu")
+        got = (dec.step_he_raw(group)[:2], 44100)
+        jdec = JaxDecoder([_config(stream)], chunk_frames=T, cce_slots=1)
+        want = (np.asarray(jdec.step_he_raw(group))[:2], 44100)
+    assert got[1] == want[1] == 44100
+    assert got[0].shape == np.shape(want[0]) and 2 in got[0].shape
+    _assert_f32(got[0], want[0], f"ps {surface}")
