@@ -45,12 +45,14 @@ _SIGNATURES = {
                    _P, _P, _P, _I, _I, _P],     # out, items, counts, rows, F, stream
     "aacjax_pred": [_P, _P, _P, _P, _P,         # spec, mode, reset, nbins, used
                     _P, _P, _I, _I, _I, _P],    # state in, out, C, T, F, stream
-    "aacjax_ps_decorr": [_P, _P, _P, _P,        # pw, peak, psmooth, pdiff
-                         _P, _P, _P, _P,        # xr, xi, ap_r, ap_i
-                         _P, _P, _P,            # qf_r, qf_i, ag
-                         _P, _P, _P, _P,        # tg, peak, psmooth, pdiff out
-                         _P, _P, _P, _P,        # yr, yi, ap_r, ap_i out
-                         _I, _I, _I, _I, _P],   # B, S, npar, nap, stream
+    "aacjax_ps_decorrelate": [_P, _P, _P, _P,   # s_r, s_i, delay_r, delay_i
+                              _P, _P, _P, _P, _P,   # ap_r, ap_i, peak, psm, pdf
+                              _P, _P, _P, _P, _P,   # phi_r, phi_i, qf_r, qf_i, ag
+                              _P, _P, _P, _P,       # k_to_i, members, d_r, d_i
+                              _P, _P, _P, _P,       # delay, ap out (r, i)
+                              _P, _P, _P,           # peak, psm, pdf out
+                              _I, _I, _I, _I,       # B, S, nb, npar
+                              _I, _I, _I, _P],      # nap, sdb, M, stream
 }
 
 

@@ -4,8 +4,9 @@ Counterpart of `aacjax/kernels/ps_batch.py`.  One call turns a [B, T] chunk
 of mono SBR-adjusted QMF planes into stereo: the hybrid filterbank's 13-tap
 complex filters over the continuous low-band line, the transient detector
 and the 3-link allpass decorrelator over the chunk's S = 32 T slots
-(`kernels/ps_decorr.py`, a CUDA kernel: the only long recurrences of the
-HE+PS program), the mixing matrices from the host-packed knots
+(`kernels/ps_decorr.py`, one CUDA kernel for the whole decorrelation: the
+band powers, the only long recurrences of the HE+PS program, the delay
+lines and the gains), the mixing matrices from the host-packed knots
 (`host/ps_pack.py`) interpolated per slot, the hybrid synthesis and two QMF
 synthesis banks run on the L-stacked-on-R [2B, ...] batch.
 
@@ -15,7 +16,8 @@ parameter-to-hybrid band expansions and the imaginary-tail rows are
 gathers here (the reference: one-hot products and masked sums, which
 select the same values exactly); the decorrelator's recurrences run as
 their sequential form in the kernel (the reference: Toeplitz products or
-log-depth doubling, which reassociate).
+log-depth doubling, which reassociate), and its band powers as sums in
+ascending band order (the reference: an indicator product).
 
 Chunk boundaries are exact: the hybrid FIR reads the continuous low-band
 line (four rows carried in `hist4`, the SBR stage's eight history rows and
@@ -120,9 +122,10 @@ def _consts(is34: bool, device: torch.device) -> dict:
             out[k] = torch.from_numpy(np.ascontiguousarray(c[k])).to(device)
     out["k_to_i"] = torch.from_numpy(c["k_to_i"]).to(device)
     out["conj_mask"] = torch.from_numpy(c["conj_mask"]).to(device)
-    npar = _NPAR[is34]
-    ind = (c["k_to_i"][:, None] == np.arange(npar)[None, :])
-    out["ind"] = torch.from_numpy(ind.astype(np.float32)).to(device)
+    # the decorrelator kernel's band maps (int32)
+    out["k_to_i32"] = out["k_to_i"].to(torch.int32)
+    out["members"] = torch.from_numpy(
+        ps_decorr.member_table(c["k_to_i"], _NPAR[is34])).to(device)
     return out
 
 
@@ -186,35 +189,9 @@ def _hybrid_analysis(Xr, Xi, lo_r, lo_i, c, is34: bool):
 
 def _decorrelate(s_r, s_i, state: dict, c, is34: bool):
     """Transient-attenuated allpass decorrelation of s [B,S,nb] -> d
-    [B,S,nb] (re, im) and the new decorrelator state."""
-    nap, sdb = _NAP[is34], _SDB[is34]
-    S = s_r.shape[1]
-    # per-parameter-band power: one product with the [nb, npar] indicator
-    # (a fixed summation order, unlike atomic adds)
-    pw = torch.matmul(s_r * s_r + s_i * s_i, c["ind"])         # [B,S,npar]
-    # the [14 history | S] line along the slots
-    line_r = torch.cat([state["delay_r"].transpose(1, 2), s_r], dim=1)
-    line_i = torch.cat([state["delay_i"].transpose(1, 2), s_i], dim=1)
-    # allpass bands: the input is s two slots back, rotated by phi_fract
-    xin_r = line_r[:, MAX_DELAY - 2: MAX_DELAY - 2 + S, :nap]
-    xin_i = line_i[:, MAX_DELAY - 2: MAX_DELAY - 2 + S, :nap]
-    xr = xin_r * c["phi_r"] - xin_i * c["phi_i"]               # [B,S,nap]
-    xi = xin_r * c["phi_i"] + xin_i * c["phi_r"]
-    tg, peak, psm, pdf, yr, yi, ap_r, ap_i = ps_decorr.decorrelate(
-        pw.contiguous(), xr.contiguous(), xi.contiguous(), state["peak"],
-        state["psmooth"], state["pdiff"], state["ap_r"], state["ap_i"],
-        c["qf_r"], c["qf_i"], c["ag"])
-    # the other bands: a plain delay of 14 slots below sdb, of 1 above
-    d_r = torch.cat([yr, line_r[:, :S, nap:sdb],
-                     line_r[:, MAX_DELAY - 1: MAX_DELAY - 1 + S, sdb:]], dim=2)
-    d_i = torch.cat([yi, line_i[:, :S, nap:sdb],
-                     line_i[:, MAX_DELAY - 1: MAX_DELAY - 1 + S, sdb:]], dim=2)
-    tg_k = tg[..., c["k_to_i"]]                                # [B,S,nb]
-    new_state = dict(
-        peak=peak, psmooth=psm, pdiff=pdf, ap_r=ap_r, ap_i=ap_i,
-        delay_r=line_r[:, -MAX_DELAY:].transpose(1, 2).contiguous(),
-        delay_i=line_i[:, -MAX_DELAY:].transpose(1, 2).contiguous())
-    return d_r * tg_k, d_i * tg_k, new_state
+    [B,S,nb] (re, im) and the new decorrelator state: one launch of the
+    decorrelator kernel on the card (`kernels/ps_decorr.py`)."""
+    return ps_decorr.decorrelate_chunk(s_r, s_i, state, c, _SDB[is34])
 
 
 def _mixing_h(dense: dict, c, is34: bool):

@@ -810,25 +810,30 @@ def ps_flip_stream(modes, seed: int = 7) -> bytes:
     return b"".join(enc.adts_frame(p, config) for p in frames)
 
 
-def ps_decorr_inputs(seed: int, B: int, S: int, is34: bool) -> list:
-    """Inputs of `ps_decorr.decorrelate` for B rows over S slots in one band
-    mode, as numpy: the power [B,S,npar] (squared noise at hybrid-band
-    scale, with silent stretches and bursts, so that the transient gain
-    takes both branches), the allpass input [B,S,nap] re / im, and a
-    carried state (peak, psmooth, pdiff [B,npar]; ap_r, ap_i
-    [B,nap,3,5]).  The constants (qf_r, qf_i, ag) come from
-    `ps_batch.consts_np`."""
+def ps_decorr_inputs(seed: int, B: int, S: int, is34: bool):
+    """Inputs of `ps_decorr.decorrelate_chunk` for B rows over S slots in
+    one band mode, as numpy: the hybrid planes s_r, s_i [B,S,nb] (noise at
+    hybrid-band scale with silent stretches and bursts, so that the
+    transient gain takes both branches) and a carried decorrelator state
+    (`ps_decorr.STATE_KEYS`: delay_r / delay_i [B,nb,14], ap_r / ap_i
+    [B,nap,3,5], peak / psmooth / pdiff [B,npar], the peak near the power
+    of its band).  The constants come from `ps_batch._consts`."""
     from aacjax_torch.kernels import ps_batch as PB
     rng = np.random.default_rng(seed)
-    npar, nap = PB._NPAR[is34], PB._NAP[is34]
+    nb, npar, nap = PB._NB[is34], PB._NPAR[is34], PB._NAP[is34]
     level = np.where(rng.random((B, S, 1)) < 0.1, 30.0, 1.0)
     level[:, S // 3: S // 3 + 8] = 0.0
-    pw = (rng.standard_normal((B, S, npar)) * 300 * level) ** 2
-    xr, xi = (rng.standard_normal((B, S, nap)) * 300 for _ in range(2))
-    peak = rng.random((B, npar)) * 1e5
-    psm, pdf = peak * 0.5, peak * 0.3
-    ap = [rng.standard_normal((B, nap, 3, 5)) * 100 for _ in range(2)]
-    return [a.astype(np.float32) for a in (pw, xr, xi, peak, psm, pdf, *ap)]
+    s_r, s_i = (rng.standard_normal((B, S, nb)) * 300 * level
+                for _ in range(2))
+    width = np.bincount(PB.consts_np(is34)["k_to_i"], minlength=npar)
+    peak = rng.random((B, npar)) * 2e5 * width
+    state = dict(delay_r=rng.standard_normal((B, nb, 14)) * 300,
+                 delay_i=rng.standard_normal((B, nb, 14)) * 300,
+                 ap_r=rng.standard_normal((B, nap, 3, 5)) * 100,
+                 ap_i=rng.standard_normal((B, nap, 3, 5)) * 100,
+                 peak=peak, psmooth=peak * 0.5, pdiff=peak * 0.3)
+    return (s_r.astype(np.float32), s_i.astype(np.float32),
+            {k: v.astype(np.float32) for k, v in state.items()})
 
 
 def sbr_ps_apply_inputs(n_streams: int, T: int, device):

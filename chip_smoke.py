@@ -64,12 +64,13 @@ Phases, each printed as it runs; any failure exits non-zero:
      host phase; then decode_adts on an HE stream whose core carries TNS,
      the streaming AACDecoder, and step_he_raw over a mid-chunk SBR header
      change (float64 replay, re-adoption), each against the CPU;
-  6. HE-AAC v2 (Parametric Stereo): in phase 2 the PS decorrelator kernel
-     at C = 1024, T = 8 in both band modes, bit-equal to its plain version
-     over two calls, with its time, bound, the plain version's time and the
-     reference's Toeplitz-product form as a yardstick; after the HE checks,
-     one sbr_ps_apply at the PS-512 chunk's shape on the card against the
-     CPU with its device time and costliest ops; after HE-512, PS-512 --
+  6. HE-AAC v2 (Parametric Stereo): in phase 2 the fused PS decorrelator
+     kernel at C = 1024, T = 8 and at B = 3, T = 1 in both band modes,
+     bit-equal to its plain version over two calls, with its time, bound,
+     the plain version's time and the reference's Toeplitz-product form as
+     a yardstick; after the HE checks, one sbr_ps_apply at the PS-512
+     chunk's shape on the card against the CPU with its device time and
+     costliest ops; after HE-512, PS-512 --
      512 HE-AAC v2 mono streams decoded as stereo (bench_he(ps=True)'s
      corpus, cce_slots=1: C = 1024), as HE-512 (1 tail and 1 decorrelator
      launch a chunk, he_aac_v2_aggregate_realtime_x, stage split with the
@@ -229,7 +230,7 @@ def ptxas_lines(log: str) -> list[str]:
             k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
             t = re.search(r"(tns_(?:filter|prepare)_kernel)ILi(\d+)ELb(\d)E",
                           name)
-            plain = [n for n in ("pred_kernel", "ps_decorr_kernel")
+            plain = [n for n in ("pred_kernel", "ps_decorrelate_kernel")
                      if n in name]
             kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
                     else f"{t[1]}<F={t[2] if t[2] != '0' else 'any'}, "
@@ -502,13 +503,37 @@ def toeplitz_ms(torch, dev, B: int, S: int, is34: bool) -> float:
     return time_ms(torch, run, reps=REPS)
 
 
+def ps_decorr_bytes(B: int, S: int, is34: bool) -> int:
+    """The bytes the fused decorrelator must move: s_r, s_i read and d_r,
+    d_i written once ([B, S, nb] f32 each), the state (delay lines
+    [B, nb, 14], allpass lines [B, nap, 3, 5], detector [B, npar], re and
+    im where complex) read and written once."""
+    from aacjax_torch.kernels import ps_batch as PB
+    nb, npar, nap = PB._NB[is34], PB._NPAR[is34], PB._NAP[is34]
+    state = 2 * nb * 14 + 2 * nap * 15 + 3 * npar
+    return 4 * B * (4 * S * nb + 2 * state)
+
+
+def ps_decorr_flops(B: int, S: int, is34: bool) -> float:
+    """Its FP32 operations: per (slot, band) 3 for the power and 2 for the
+    gains; per (slot, parameter band) ~10 for the detector's step (a
+    product, a max, two smoothers, the test and the quotient); per (slot,
+    allpass band) 6 for the rotation and 14 per link (6 products and 4 sums
+    for n, 2 of each for the push)."""
+    from aacjax_torch.kernels import ps_batch as PB
+    nb, npar, nap = PB._NB[is34], PB._NPAR[is34], PB._NAP[is34]
+    return float(B * S * (5 * nb + 10 * npar + 48 * nap))
+
+
 def phase_ps_decorr_kernel(torch, dev, results: dict) -> None:
-    """The PS decorrelator kernel against its plain version at PS-512's
-    chunk shape (C = 1024 rows, T = 8: S = 256 slots), in both band modes,
-    over two calls with the state carried, bit for bit; its time per call
-    and device time, its bound, the plain version's time (one call, a
-    Python loop over the slots) and the Toeplitz-product yardstick.  The
-    20-band case (PS-512's mode) is the one `results` keeps."""
+    """The fused PS decorrelator kernel against its plain version at PS-512's
+    chunk shape (C = 1024 rows, T = 8: S = 256 slots) and at B = 3, T = 1
+    (one tile, a batch of few rows), in both band modes, over two calls
+    with the state carried, d and every state tensor bit for bit; at the
+    serving shape its time per call and device time, its bound, the plain
+    version's time (one call, a Python loop over the slots) and the
+    Toeplitz-product yardstick.  The 20-band case (PS-512's mode) is the
+    one `results` keeps."""
     from aacjax_torch import testing as TI
     from aacjax_torch.kernels import ps_batch as PB
     from aacjax_torch.kernels import ps_decorr
@@ -518,44 +543,46 @@ def phase_ps_decorr_kernel(torch, dev, results: dict) -> None:
 
     B, S = 2 * N_STREAMS, 32 * HE_CHUNK
     for is34 in (False, True):
-        c = PB.consts_np(is34)
         npar, nap = PB._NPAR[is34], PB._NAP[is34]
-        args = [torch.from_numpy(a).to(dev) for a in
-                TI.ps_decorr_inputs(3 + is34, B, S, is34)
-                + [c["qf_r"], c["qf_i"], c["ag"]]]
-        st_k = st_p = args[3:8]
-        plain = None
-        for k in range(2):
-            x = (args[:3] if k == 0
-                 else [a.flip(1).contiguous() for a in args[:3]])
-            got = ps_decorr.decorrelate(*x, *st_k, *args[8:])
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            want = ps_decorr.decorrelate_ref(*x, *st_p, *args[8:])
-            b.record()
-            torch.cuda.synchronize()
-            plain = plain or a.elapsed_time(b)
-            for i, (g, w) in enumerate(zip(got, want)):
-                check(bits_equal(g, w), f"ps_decorr {npar}-band call {k}: "
-                      f"output {i} differs from the plain version (max err "
-                      f"{float((g - w).abs().max())})")
-            check(bool(torch.isfinite(got[0]).all()
-                       and torch.isfinite(got[4]).all()),
-                  "ps_decorr: non-finite output")
-            st_k, st_p = got[1:4] + got[6:], want[1:4] + want[6:]
+        c, sdb = PB._consts(is34, dev), PB._SDB[is34]
+        for rows, slots in ((3, 32), (B, S)):
+            s_r, s_i, st = TI.ps_decorr_inputs(3 + is34, rows, slots, is34)
+            s_r, s_i = (torch.from_numpy(a).to(dev) for a in (s_r, s_i))
+            st_k = st_p = {k: torch.from_numpy(v).to(dev)
+                           for k, v in st.items()}
+            plain = None
+            for k in range(2):
+                x = ((s_r, s_i) if k == 0
+                     else tuple(a.flip(1).contiguous() for a in (s_r, s_i)))
+                got = ps_decorr.decorrelate_chunk(*x, st_k, c, sdb)
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                want = ps_decorr.decorrelate_chunk_ref(*x, st_p, c, sdb)
+                b.record()
+                torch.cuda.synchronize()
+                plain = plain or a.elapsed_time(b)
+                pairs = [("d_r", got[0], want[0]), ("d_i", got[1], want[1])]
+                pairs += [(n, got[2][n], want[2][n])
+                          for n in ps_decorr.STATE_KEYS]
+                for n, g, w in pairs:
+                    check(bits_equal(g, w), f"ps_decorr {npar}-band B={rows} "
+                          f"S={slots} call {k}: {n} differs from the plain "
+                          f"version (max err {float((g - w).abs().max())})")
+                check(bool(torch.isfinite(got[0]).all()
+                           and torch.isfinite(got[1]).all()),
+                      "ps_decorr: non-finite output")
+                st_k, st_p = got[2], want[2]
+            if rows != B:
+                say(f"kernel ps_decorr B={rows} S={slots} {npar}-band: "
+                    "bit-equal to the plain version over 2 calls (state "
+                    "carried)")
 
         def run():
-            return ps_decorr.decorrelate(*args[:3], *st_k, *args[8:])
+            return ps_decorr.decorrelate_chunk(s_r, s_i, st_k, c, sdb)
         ms = time_ms(torch, run, reps=REPS)
-        dms = device_ms(torch, run, "ps_decorr_kernel")
-        # bytes: the power and the gains, the allpass input and output once
-        # each, the states in and out.  Operations per slot: ~10 for the
-        # detector's step (a product, a max, two smoothers, the test and the
-        # quotient), 14 per allpass link (6 products and 4 sums for n, 2 of
-        # each for the push)
-        nb = (2 * B * S * npar * 4 + 4 * B * S * nap * 4
-              + 2 * nbytes(*args[3:8]))
-        b_ms, b_by = bound(nb, 10.0 * B * S * npar + 42.0 * B * S * nap)
+        dms = device_ms(torch, run, "ps_decorrelate_kernel")
+        nb = ps_decorr_bytes(B, S, is34)
+        b_ms, b_by = bound(nb, ps_decorr_flops(B, S, is34))
         lib = toeplitz_ms(torch, dev, B, S, is34)
         if not is34:
             results["ps_decorr"] = dict(max_abs_err=0.0, ms=ms,
@@ -565,10 +592,11 @@ def phase_ps_decorr_kernel(torch, dev, results: dict) -> None:
         say(f"kernel ps_decorr B={B} S={S} {npar}-band: bit-equal to the "
             f"plain version over 2 calls (state carried); {ms:.4f} ms per "
             f"call (device {fmt(dms)}), plain {plain:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB), the reference's "
-            f"default allpass form (3 complex Toeplitz torch.matmul, "
-            f"[{nap}, n, n] x [{nap}, n, {B} d]) {lib:.4f} ms; no PyTorch "
-            "call computes the transient detector")
+            f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB: s in, d out, the "
+            f"state in and out), the reference's default allpass form (3 "
+            f"complex Toeplitz torch.matmul, [{nap}, n, n] x [{nap}, n, {B} "
+            f"d]) {lib:.4f} ms; no PyTorch call computes the whole "
+            "decorrelation")
 
 
 def parse_threads(n_streams: int) -> int:

@@ -15,8 +15,8 @@ by FFT, the plain versions by the reference's dense product.  TNS is held
 to 1e-6 * max|x|: the float-float form exists for that accuracy (the kernel
 keeps the plain version's roundings, so the two are in fact equal up to the
 sign of a zero).  The predictor kernel is held to its plain version bit for
-bit, and so is the Parametric Stereo decorrelator kernel; the HE and PS
-routes are held to the CPU.  This file imports no JAX.
+bit, and so is the fused Parametric Stereo decorrelator kernel; the HE and
+PS routes are held to the CPU.  This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -695,42 +695,75 @@ def test_he_routes_on_card_match_cpu(dev):
 
 # -- HE-AAC v2 (Parametric Stereo) ------------------------------------------------
 def _decorr_args(dev, seed, B, S, is34):
+    """Planes, state and constants of the fused decorrelator on `dev`."""
     from aacjax_torch.kernels import ps_batch as PB
-    c = PB.consts_np(is34)
-    arrays = TI.ps_decorr_inputs(seed, B, S, is34)
-    return _on(dev, arrays + [c["qf_r"], c["qf_i"], c["ag"]])
+    s_r, s_i, state = TI.ps_decorr_inputs(seed, B, S, is34)
+    return (torch.from_numpy(s_r).to(dev), torch.from_numpy(s_i).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in state.items()},
+            PB._consts(is34, dev), PB._SDB[is34])
 
 
-@pytest.mark.parametrize("B,T", [(1024, 8), (5, 2), (1, 1)])
+@pytest.mark.parametrize("B,T", [(1024, 8), (5, 2), (3, 1), (1, 1), (7, 3)])
 @pytest.mark.parametrize("is34", [False, True])
 def test_ps_decorr_kernel_equals_plain_bit_for_bit(dev, is34, B, T):
-    """Two calls with the state carried; every output and state bit for
-    bit (one f32 operation at a time in the same order)."""
-    args = _decorr_args(dev, B + T + is34, B, 32 * T, is34)
-    state_k = state_p = args[3:8]
+    """The fused decorrelator, two calls with the state carried (the
+    second on the planes reversed along the slots); d and every state
+    tensor bit for bit (one f32 operation at a time in the same order).
+    Includes T = 1 (one tile: the history only from the state) and B that
+    no multiple of a few rows covers."""
+    s_r, s_i, state, c, sdb = _decorr_args(dev, B + T + is34, B, 32 * T,
+                                           is34)
+    st_k = st_p = state
     for k in range(2):
-        x = args[:3] if k == 0 else [a.flip(1).contiguous() for a in args[:3]]
+        x = ((s_r, s_i) if k == 0
+             else tuple(a.flip(1).contiguous() for a in (s_r, s_i)))
         before = ps_decorr.launches
-        got = ps_decorr.decorrelate(*x, *state_k, *args[8:])
+        got = ps_decorr.decorrelate_chunk(*x, st_k, c, sdb)
         assert ps_decorr.launches == before + 1
-        want = ps_decorr.decorrelate_ref(*x, *state_p, *args[8:])
+        want = ps_decorr.decorrelate_chunk_ref(*x, st_p, c, sdb)
         torch.cuda.synchronize()
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert _bits_equal(g, w), (k, i, float((g - w).abs().max()))
-        state_k, state_p = got[1:4] + got[6:], want[1:4] + want[6:]
+        for i in range(2):
+            assert _bits_equal(got[i], want[i]), (k, i, float(
+                (got[i] - want[i]).abs().max()))
+        for key in ps_decorr.STATE_KEYS:
+            assert _bits_equal(got[2][key], want[2][key]), (k, key)
         assert bool(torch.isfinite(got[0]).all())
+        st_k, st_p = got[2], want[2]
+
+
+def test_ps_decorr_one_launch_per_chunk_and_mode(dev):
+    """One launch per sbr_ps_apply, two per dual (20 + 34-band) chunk."""
+    from aacjax_torch.kernels import ps_batch as PB
+    core, planes, ps, cfg, state, ps20 = TI.sbr_ps_apply_inputs(8, 2, dev)
+    ps34 = PB.ps_state_init(core.shape[0], True, dev)
+    before = ps_decorr.launches
+    PB.sbr_ps_apply(core, planes, ps, state, ps20, cfg)
+    assert ps_decorr.launches == before + 1
+    mixed = dict(ps, slot_is34=(torch.arange(core.shape[0], device=dev) % 2
+                                ).float())
+    PB.sbr_ps_apply_dual(core, planes, mixed, state, ps20, ps34, cfg)
+    torch.cuda.synchronize()
+    assert ps_decorr.launches == before + 3
 
 
 def test_ps_decorr_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    args = _decorr_args(dev, 1, 4, 32, False)
-    with pytest.raises(TypeError, match="pw"):
-        ps_decorr.decorrelate(args[0].double(), *args[1:])
+    s_r, s_i, state, c, sdb = _decorr_args(dev, 1, 4, 32, False)
+    run = ps_decorr.decorrelate_chunk
+    with pytest.raises(TypeError, match="s_r"):
+        run(s_r.double(), s_i, state, c, sdb)
     with pytest.raises(ValueError, match="ap_r"):
-        ps_decorr.decorrelate(*args[:6], args[6][:, :-1], *args[7:])
-    with pytest.raises(ValueError, match="xr"):
-        ps_decorr.decorrelate(args[0], args[1].transpose(1, 2), *args[2:])
+        run(s_r, s_i, dict(state, ap_r=state["ap_r"][:, :-1]), c, sdb)
+    wide = torch.zeros(4, 32, s_i.shape[2] + 1, device=dev)
+    with pytest.raises(ValueError, match="s_i: not contiguous"):
+        run(s_r, wide[..., :-1], state, c, sdb)
+    flat = torch.zeros(s_i.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="s_i: address not aligned"):
+        run(s_r, flat[1:].view(s_i.shape), state, c, sdb)
     with pytest.raises(ValueError, match="on cpu"):
-        ps_decorr.decorrelate(*args[:8], *(a.cpu() for a in args[8:]))
+        run(s_r, s_i, state,
+            dict(c, **{k: c[k].cpu() for k in ps_decorr.CONST_KEYS}), sdb)
+    with pytest.raises(ValueError, match="whole frames"):
+        run(s_r[:, :16].contiguous(), s_i[:, :16].contiguous(), state, c, sdb)
 
 
 def test_decode_he_pipelined_ps_on_card_matches_cpu(dev):
