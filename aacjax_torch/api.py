@@ -1,4 +1,5 @@
-"""Public API: `decode_adts`, `decode_loas`, the streaming `AACDecoder`.
+"""Public API: `decode_adts`, `decode_loas`, `decode_m4a`, the streaming
+`AACDecoder`.
 
 Counterpart of `aacjax/api.py`: every stream the reference decodes decodes
 here, on `device` ("cuda" unless the caller passes "cpu") -- AAC-LC, Main,
@@ -528,6 +529,36 @@ def decode_loas(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
         raise UnsupportedError("no LOAS frames found")
     return _decode_raw_payloads(mux.config, mux.asc_raw, payloads,
                                 chunk_frames, cce_slots, on_error, device)
+
+
+def decode_m4a(data: bytes, chunk_frames: int = 64, cce_slots: int = 2,
+               on_error: str = "raise", trim: bool = True,
+               device: str | torch.device = "cuda"
+               ) -> tuple[np.ndarray, int]:
+    """Decode an MP4/M4A file buffer (classic or fragmented layout) on
+    `device`: demux the track's esds cookie and sample payloads
+    (host/mp4.py) and route them through _decode_raw_payloads.
+
+    trim=True applies the container's gapless metadata (edts/elst): the
+    encoder-delay priming samples are dropped and the output is cut to the
+    signalled valid duration.  Returns (pcm [n, channels], rate)."""
+    from aacjax_torch.host import mp4
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error: {on_error}")
+    track, payloads = mp4.split_samples(data)
+    if not payloads:
+        raise UnsupportedError("MP4 track has no samples")
+    pcm, rate = _decode_raw_payloads(track.config, track.asc_raw, payloads,
+                                     chunk_frames, cce_slots, on_error,
+                                     device)
+    if trim and (track.priming or track.total_samples):
+        # elst units are the media timescale (the core sample rate unless
+        # the track says otherwise); scale to output samples (2x with SBR)
+        ts = track.timescale or track.config.sample_rate
+        pcm = pcm[round(track.priming * rate / ts):]
+        if track.total_samples:
+            pcm = pcm[:round(track.total_samples * rate / ts)]
+    return pcm, rate
 
 
 def _decode_ltp(data: bytes, frames, config, on_error: str,

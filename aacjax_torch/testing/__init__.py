@@ -862,3 +862,22 @@ def sbr_ps_apply_inputs(n_streams: int, T: int, device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return core, planes, ps, cfg, state, PB.ps_state_init(dec.C, False, dev)
+
+
+def encode_serving_pcm(n_streams: int, n_samples: int) -> np.ndarray:
+    """The batched encoder's serving traffic, float32 [n_streams,
+    n_samples, 2] in the 32768 scale: bench.py bench_encode's construction
+    (two tones and noise from seed 11, each stream a rotation of the shared
+    base by 97 samples, its right channel 0.8 x the left rotated by 41
+    more)."""
+    t = np.arange(n_samples) / SR
+    rng = np.random.default_rng(11)
+    base = (6000 * np.sin(2 * np.pi * 440 * t)
+            + 2000 * np.sin(2 * np.pi * 1230 * t)
+            + 500 * rng.standard_normal(n_samples))
+    pcm = np.empty((n_streams, n_samples, 2), np.float32)
+    for s in range(n_streams):
+        r = np.roll(base, 97 * s)
+        pcm[s, :, 0] = r
+        pcm[s, :, 1] = 0.8 * np.roll(r, 41)
+    return pcm

@@ -76,7 +76,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      launch a chunk, he_aac_v2_aggregate_realtime_x, stage split with the
      PS planes' copy, the HE bound); then decode_adts on a 20-band and a
      34-band stream, a mixed 20/34 batch, a band-scheme flip, AACDecoder
-     and save / restore, each against the CPU.
+     and save / restore, each against the CPU;
+  7. the user surfaces: decode_m4a on an LC and an HE .m4a against the CPU,
+     AACFile ranged reads against a full decode on the card bit for bit and
+     an HE seek's convergence, the Aurora pipe against decode_adts, the CLI's
+     info and decode by subprocess, and a good stream beside garbage against
+     its solo decode;
+  8. ENC-512, the batched encoder at serving width: 512 AAC-LC stereo
+     streams at 44.1 kHz and 128 kbps (bench.py bench_encode's traffic),
+     chunks of 16 frames, a warm-up chunk and 2 runs of encode_pipelined
+     over 4 chunks -- encode_aggregate_realtime_x per run and their median,
+     the stage split, the pipelined payloads against sequential encode_chunk
+     byte for byte, one chunk's analysis and quantize against the CPU, the
+     device programs' time, launches, costliest ops and peak memory; then
+     every stream decoded on the card through decode_pipelined (the tail
+     kernel), its SNR against its source held to 32 of the streams encoded
+     and decoded on the CPU route (within 0.5 dB).
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
@@ -1493,6 +1508,360 @@ def phase_ps_routes(torch) -> dict:
     return counts
 
 
+# -- surfaces: decode_m4a, AACFile, Aurora, the CLI, batch isolation ----------
+def phase_surfaces(torch) -> dict:
+    """The user surfaces on the card: decode_m4a on an LC and an HE .m4a
+    against the same calls on the CPU; AACFile ranged reads of an LC stream
+    against the same slices of a full decode on the card, bit for bit, and
+    an HE seek read's convergence (> 60 dB against the full decode); the
+    Aurora demuxer piped into AuroraDecoder against decode_adts on the card
+    (the reference's 2e-4); `python -m aacjax_torch.cli info` and `decode`
+    by subprocess; a good stream's PCM beside garbage streams against its
+    solo decode.  Returns the launches of the surfaces' decodes."""
+    import tempfile
+
+    import aacjax_torch
+    from aacjax_torch import aurora
+    from aacjax_torch import testing as TI
+    from aacjax_torch.host import sbr as S
+    reset_launches()
+    pcm = TI.tone_pcm(1024 * 24)
+
+    lc_m4a = aacjax_torch.encode_m4a(pcm, 44100)
+    got, rate = aacjax_torch.decode_m4a(lc_m4a)
+    want, _ = aacjax_torch.decode_m4a(lc_m4a, device="cpu")
+    err = TI.assert_pcm_close(got, want, False, "decode_m4a LC")
+    check(got.shape[0] == pcm.shape[0], "decode_m4a LC: the gapless trim "
+          f"returned {got.shape[0]} samples, not {pcm.shape[0]}")
+    say(f"surfaces: decode_m4a LC {got.shape} at {rate} Hz (gapless trim "
+        f"exact) matches the CPU (max err {err})")
+    he_m4a = aacjax_torch.HEAACEncoder(44100, 2, 40_000).encode_m4a(pcm)
+    got, rate = aacjax_torch.decode_m4a(he_m4a)
+    want, _ = aacjax_torch.decode_m4a(he_m4a, device="cpu")
+    err = he_close(got, want, "decode_m4a HE", HE_ROUTE_TOL)
+    say(f"surfaces: decode_m4a HE (explicit SBR) {got.shape} at {rate} Hz "
+        f"matches the CPU (max err {err:.4g} * max(1, max|ref|))")
+
+    stream = TI.encode_adts(pcm, target_sf=120)
+    full, _ = aacjax_torch.decode_adts(stream)
+    f = aacjax_torch.AACFile(stream)
+    cases = ((0, 1024), (5 * 1024, 1024), (5 * 1024 + 137, 2000),
+             (22 * 1024 + 512, 4096), (3 * 1024, 1), (9000, 20000))
+    for start, n in cases:
+        check(np.array_equal(f.read(start, n), full[start:start + n]),
+              f"AACFile.read({start}, {n}) on the card differs from the same "
+              "slice of a full decode on the card")
+    say(f"surfaces: AACFile LC, {len(cases)} ranged reads on the card equal "
+        "the full decode on the card bit for bit")
+    # an SBR header in every frame: a seek read's first frame must show the
+    # SBR extension, as decode_adts finds HE-AAC by the first frame's
+    hdr = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    he = TI.he_stream(24, ch=2, header_at=dict.fromkeys(range(24), hdr))
+    he_full, _ = aacjax_torch.decode_adts(he, chunk_frames=8)
+    start, n = 20 * 2048, 2 * 2048
+    seek = aacjax_torch.AACFile(he, chunk_frames=8).read(start, n)
+    ref = he_full[start:start + n]
+    snr = 10 * np.log10(float(np.sum(ref ** 2)) / max(
+        float(np.sum((seek - ref) ** 2)), 1e-30))
+    check(snr > 60.0, f"AACFile HE seek: {snr:.1f} dB against the full decode")
+    say(f"surfaces: AACFile HE seek read converges: {snr:.1f} dB against the "
+        "full decode on the card")
+
+    demux = aurora.ADTSDemuxer()
+    dec = demux.pipe(aurora.AuroraDecoder())
+    chunks = []
+    dec.on("data", chunks.append)
+    for off in range(0, len(stream), 1000):
+        demux.feed(stream[off:off + 1000])
+        dec.decode_all()
+    demux.end()
+    piped = np.concatenate(chunks).reshape(-1, 2)
+    check(piped.shape == full.shape, f"Aurora pipe: {piped.shape} against "
+          f"decode_adts's {full.shape}")
+    err = float(np.abs(piped - full).max())
+    check(err <= 2e-4, f"Aurora pipe on the card: {err} from decode_adts")
+    say(f"surfaces: Aurora pipe {piped.shape} matches decode_adts on the card "
+        f"(max err {err}, bound 2e-4)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pathlib.Path(tmp) / "in.aac"
+        src.write_bytes(stream)
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        runs = {}
+        for cmd in (["info"], ["decode", str(src), str(src) + ".wav"]):
+            r = subprocess.run([sys.executable, "-m", "aacjax_torch.cli",
+                                *cmd], capture_output=True, text=True,
+                               cwd=REPO, env=env, timeout=300)
+            check(r.returncode == 0, f"cli {cmd[0]}: {r.stderr[-800:]}")
+            runs[cmd[0]] = json.loads(r.stdout.strip().splitlines()[-1])
+    info = runs["info"]
+    check(info["cuda_device"] == torch.cuda.get_device_name(0)
+          and info["native_parser"] and info["native_writer"],
+          f"cli info: {info}")
+    check(runs["decode"]["samples"] == full.shape[0], f"cli decode: "
+          f"{runs['decode']}")
+    say(f"surfaces: cli info {info}; cli decode {runs['decode']['samples']} "
+        "samples")
+
+    rng = np.random.default_rng(3)
+    cfg = TI.lc_stereo_config()
+    good = TI.adts_payloads(stream)[:16]
+    garbage = [rng.integers(0, 256, size=200).astype(np.uint8).tobytes()
+               for _ in range(16)]
+    both = aacjax_torch.BatchDecoder([cfg] * 4, chunk_frames=16)
+    pcm_b = both.step_raw([good, garbage, garbage, good], out_int16=False)
+    solo = aacjax_torch.BatchDecoder([cfg], chunk_frames=16)
+    want = solo.step_raw([good], out_int16=False)
+    check([st.failed for st in both.streams] == [False, True, True, False],
+          f"batch isolation: failed flags {[st.failed for st in both.streams]}")
+    peak = max(float(np.abs(want[:2]).max()), 1e-9)
+    d = max(float(np.abs(pcm_b[:2] - want[:2]).max()),
+            float(np.abs(pcm_b[6:8] - want[:2]).max()))
+    check(d / peak <= 1e-5, f"batch isolation: {d / peak} relative > 1e-5")
+    say(f"surfaces: a good stream beside garbage equals its solo decode "
+        f"{'bit for bit' if d == 0 else f'within {d / peak:.3g} relative'} "
+        "on the card")
+    return read_launches()
+
+
+# -- the batched encoder at serving width --------------------------------------
+ENC_STREAMS = 512    # bench.py --streams 512
+ENC_CHUNK = 16       # frames a chunk (bench.py --chunk 16)
+ENC_CHUNKS = 4       # chunks a run
+ENC_RUNS = 2         # encode_pipelined runs after the warm-up chunk
+ENC_BITRATE = 128_000
+
+
+def enc_analysis_check(torch, enc, chunk) -> None:
+    """One chunk's analysis on the card against the CPU (coefs within
+    1e-5 * max|coefs|; base and fit_sf equal on >= 99.9% of entries, never
+    more than one step apart; est within 1% of each row's largest), then
+    the quantize on both devices fed the CPU's analysis: q equal on
+    >= 99.99% of bins and never more than one step apart, sf exact."""
+    from aacjax_torch import encode_batch as EB
+    seqs, pcm_i16, w_idx, is_short, nF = enc._prep_chunk(chunk)
+    psy = (enc._psy.smr_db, enc._psy.spread_up_db, enc._psy.spread_down_db)
+    host = [torch.from_numpy(a) for a in (pcm_i16, w_idx.astype(np.int64),
+                                          is_short)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        fn = EB._analysis_fn(enc._si, enc._cutoff_bin, EB.FRAME, nF, psy,
+                             torch.device(dev))
+        t0 = time.perf_counter()
+        outs[dev] = fn(*(a.to(dev) for a in host))
+        torch.cuda.synchronize()
+        say(f"ENC-512: one chunk's analysis on the {dev}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    (c, b, f, e, bb), (c0, b0, f0, e0, bb0) = (
+        [a.cpu().numpy() for a in outs[d]] for d in ("cuda", "cpu"))
+    check(np.array_equal(bb, bb0), "ENC-512 analysis: bin_band differs")
+    c_err = float(np.abs(c - c0).max()) / float(np.abs(c0).max())
+    check(c_err <= 1e-5, f"ENC-512 analysis: coefs {c_err} * max|coefs|")
+    shares = {}
+    for name, got, want in (("base", b, b0), ("fit_sf", f, f0)):
+        diff = np.abs(got - want)
+        shares[name] = float((diff != 0).mean())
+        check(shares[name] <= 1e-3 and float(diff.max()) <= 1.0,
+              f"ENC-512 analysis: {name} differs on {shares[name]} of "
+              f"entries, max step {float(diff.max())}")
+    row = np.maximum(np.abs(e0).max(axis=1, keepdims=True), 1.0)
+    e_err = float((np.abs(e - e0) / row).max())
+    check(e_err <= 0.01, f"ENC-512 analysis: est {e_err} of a row's largest")
+    off, _ = EB.BatchEncoder(44100, 2, ENC_BITRATE, n_streams=ENC_STREAMS,
+                             device="cpu")._rate_choice(e0, nF)
+    short = torch.from_numpy(is_short.reshape(-1))
+    q = {}
+    for dev in ("cuda", "cpu"):
+        args = [a.to(dev) for a in outs["cpu"]]
+        q[dev] = [a.cpu().numpy() for a in enc._quantize(
+            args[0], args[1], args[2], args[4],
+            torch.from_numpy(off).to(dev), short.to(dev))]
+    check(np.array_equal(q["cuda"][1], q["cpu"][1]), "ENC-512 quantize: sf "
+          "differs")
+    dq = np.abs(q["cuda"][0].astype(np.int32) - q["cpu"][0])
+    q_share = float((dq != 0).mean())
+    check(q_share <= 1e-4 and int(dq.max()) <= 1, f"ENC-512 quantize: q "
+          f"differs on {q_share} of bins, max step {int(dq.max())}")
+    say(f"ENC-512: one chunk's analysis on the card matches the CPU: coefs "
+        f"{c_err:.3g} * max|coefs|, base differs on {shares['base']:.6f} and "
+        f"fit_sf on {shares['fit_sf']:.6f} of (row, band) entries, est "
+        f"{e_err:.4g} of a row's largest; quantize fed the same analysis: "
+        f"{q_share:.7f} of q differ (max step {int(dq.max())}), sf equal")
+
+
+def enc_device_profile(torch, enc, chunk) -> None:
+    """The analysis and the quantize of one chunk on the card: device time,
+    kernel launches and the ten costliest device ops of each
+    (torch.profiler), and the peak memory of one analysis."""
+    from torch.profiler import ProfilerActivity, profile
+    seqs, pcm_i16, w_idx, is_short, nF = enc._prep_chunk(chunk)
+    dev = [a.to("cuda") for a in (torch.from_numpy(pcm_i16),
+                                  torch.from_numpy(w_idx.astype(np.int64)),
+                                  torch.from_numpy(is_short))]
+    analysis = enc._analysis_for(nF)
+    outs = analysis(*dev)
+    off = torch.from_numpy(enc._rate_choice(outs[3].cpu().numpy(), nF)[0]
+                           ).to("cuda")
+    short = dev[2].reshape(-1)
+    torch.cuda.synchronize()
+    del outs
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    outs = analysis(*dev)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    say(f"ENC-512: analysis peak memory {peak:.3f} GiB above its inputs "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated at "
+        "the peak)")
+    reps = 5
+    for what, run in (("analysis", lambda: analysis(*dev)),
+                      ("quantize", lambda: enc._quantize(
+                          outs[0], outs[1], outs[2], outs[4], off, short))):
+        ms = time_ms(torch, run, runs=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        evs = list(prof.key_averages())
+        total = sum(dev_time(e) for e in evs) / reps
+        dev_s = (f"{total / 1e3:.4f} ms" if total else
+                 "not measured (the trace held no device times)")
+        say(f"ENC-512: {what} of one chunk: device time {dev_s} over "
+            f"{sum(e.count for e in evs) / reps:.0f} kernel launches (a "
+            f"trace of {reps} calls), {ms:.4f} ms by CUDA events (median of "
+            "10); top 10 device ops, per call:")
+        for e in sorted(evs, key=dev_time, reverse=True)[:10]:
+            t = dev_time(e) / reps
+            say(f"ENC-512:   {t / 1e3:8.4f} ms "
+                f"{100 * t / max(total, 1e-9):5.1f}% x{e.count / reps:<5.0f} "
+                f"{e.key[:100]}")
+
+
+def enc_snrs(dec, outs, pcm, streams) -> list[float]:
+    """Each stream's SNR (dB) of its decode (dec's f32 chunks `outs`)
+    against its source pcm [S, n, 2]: the decode lags the source by one
+    frame; the first chunk, where the bit estimate's calibration warms, and
+    the last frame are left out."""
+    L = ENC_CHUNK * 1024
+    snrs = []
+    for s in streams:
+        out = np.concatenate([dec.stream_pcm(o, s, ENC_CHUNK) for o in outs])
+        ref = pcm[s, L:ENC_CHUNKS * L - 1024].astype(np.float64)
+        got = out[L + 1024:] * 32768.0
+        snrs.append(float(10 * np.log10(np.sum(ref ** 2)
+                                        / np.sum((got - ref) ** 2))))
+    return snrs
+
+
+def phase_encode_serving(torch) -> dict:
+    """ENC-512: 512 AAC-LC stereo streams at 44.1 kHz and 128 kbps
+    (bench.py bench_encode's traffic), chunks of 16 frames through
+    BatchEncoder on the card: one warm-up chunk, then ENC_RUNS runs of
+    encode_pipelined over ENC_CHUNKS chunks (encode_aggregate_realtime_x per
+    run and their median, the stage split, the writer); the pipelined
+    payloads against sequential encode_chunk on the card byte for byte; one
+    chunk's analysis and quantize against the CPU; the device programs'
+    time, launches, costliest ops and peak memory; then every stream of one
+    run decoded on the card through decode_pipelined (the tail kernel),
+    its SNR against its source held to the same streams encoded and
+    decoded on the CPU route: within 0.5 dB of each of 32 streams, and no
+    stream below their minimum by more than 0.5 dB.  Returns the decode's
+    launches."""
+    import aacjax_torch
+    from aacjax_torch.host import native_write
+    from aacjax_torch.testing import encode_serving_pcm
+    check(native_write.available(), "the native writer is not available")
+    L = ENC_CHUNK * 1024
+    pcm = encode_serving_pcm(ENC_STREAMS, ENC_CHUNKS * L)
+    chunks = [pcm[:, k * L:(k + 1) * L] for k in range(ENC_CHUNKS)]
+    audio_s = ENC_STREAMS * ENC_CHUNKS * L / 44100
+
+    def encoder():
+        return aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
+                                         n_streams=ENC_STREAMS)
+
+    t0 = time.perf_counter()
+    warm = encoder()
+    warm.encode_chunk(chunks[0])
+    say(f"ENC-512: {ENC_STREAMS} streams x {ENC_CHUNKS} chunks of "
+        f"{ENC_CHUNK} frames ({audio_s:.1f} s of audio a run), writer "
+        f"{'native' if warm._native_write else 'python'}; warm-up chunk "
+        f"{time.perf_counter() - t0:.2f} s")
+    rtx, runs, stats = [], [], []
+    for _ in range(ENC_RUNS):
+        enc = encoder()
+        t0 = time.perf_counter()
+        outs = list(enc.encode_pipelined(iter(chunks)))
+        wall = time.perf_counter() - t0
+        check(len(outs) == ENC_CHUNKS, "ENC-512: encode_pipelined lost chunks")
+        rtx.append(audio_s / wall)
+        runs.append(outs)
+        stats.append(dict(enc.stats))
+    kbps = (sum(len(p) for o in runs[0] for s in o for p in s) * 8
+            / (ENC_CHUNKS * L / 44100) / 1000 / ENC_STREAMS)
+    say(f"ENC-512: encode_aggregate_realtime_x {float(np.median(rtx)):.1f} "
+        f"(median of {ENC_RUNS} runs; runs {[round(x, 1) for x in rtx]}), "
+        f"{kbps:.1f} kbps a stream")
+    for k, st in enumerate(stats):
+        per = {key: round(v / ENC_CHUNKS, 4) for key, v in st.items()
+               if key != "frames"}
+        say(f"ENC-512: run {k} stage split, seconds a chunk summed over the "
+            f"three stages' threads: {per}, frames {st['frames']}")
+
+    seq = encoder()
+    want = [seq.encode_chunk(c) for c in chunks]
+    check(want == runs[0], "ENC-512: encode_pipelined differs from "
+          "sequential encode_chunk")
+    say("ENC-512: the pipelined payloads equal sequential encode_chunk on the "
+        "card byte for byte")
+    enc_analysis_check(torch, seq, chunks[1])
+    enc_device_profile(torch, seq, chunks[1])
+
+    cfg = seq.config
+    payloads = [[p for o in runs[0] for p in o[s]] for s in range(ENC_STREAMS)]
+    dec = aacjax_torch.BatchDecoder([cfg] * ENC_STREAMS, chunk_frames=ENC_CHUNK)
+    reset_launches()
+    outs = list(dec.decode_pipelined(
+        iter([[p[k * ENC_CHUNK:(k + 1) * ENC_CHUNK] for p in payloads]
+              for k in range(ENC_CHUNKS)]), out_int16=False))
+    counts = read_launches()
+    check(counts["tail"] == ENC_CHUNKS, f"ENC-512 decode: launches {counts}")
+    check(not any(st.failed for st in dec.streams), "ENC-512 decode: a "
+          "stream failed")
+    snrs = enc_snrs(dec, outs, pcm, range(ENC_STREAMS))
+    # the reference for the quality: a subset of the streams encoded and
+    # decoded on the CPU route (held byte for byte to aacjax's encoder by
+    # tests/test_torch_encode_batch.py)
+    sub = list(range(0, ENC_STREAMS, 16))
+    cpu_enc = aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
+                                        n_streams=len(sub), device="cpu")
+    cpu_runs = [cpu_enc.encode_chunk(c[sub]) for c in chunks]
+    same = sum(a == b for i, s in enumerate(sub) for k in range(ENC_CHUNKS)
+               for a, b in zip(runs[0][k][s], cpu_runs[k][i]))
+    cpu_dec = aacjax_torch.BatchDecoder([cfg] * len(sub),
+                                        chunk_frames=ENC_CHUNK, device="cpu")
+    cpu_outs = list(cpu_dec.decode_pipelined(
+        iter([[p[k * ENC_CHUNK:(k + 1) * ENC_CHUNK] for p in
+               ([q for o in cpu_runs for q in o[i]] for i in range(len(sub)))]
+              for k in range(ENC_CHUNKS)]), out_int16=False))
+    cpu_snrs = enc_snrs(cpu_dec, cpu_outs, pcm[sub], range(len(sub)))
+    worst = max(abs(snrs[s] - c) for s, c in zip(sub, cpu_snrs))
+    check(worst <= 0.5, f"ENC-512 decode: a stream's SNR is {worst:.3f} dB "
+          "from the same stream's on the CPU route")
+    check(min(snrs) >= min(cpu_snrs) - 0.5, f"ENC-512 decode: SNR min "
+          f"{min(snrs):.2f} dB, below the CPU route's min "
+          f"{min(cpu_snrs):.2f} dB - 0.5")
+    say(f"ENC-512: all {ENC_STREAMS} streams of run 0 decode on the card "
+        f"through decode_pipelined (launches {counts}) at SNR min "
+        f"{min(snrs):.2f} / median {float(np.median(snrs)):.2f} / max "
+        f"{max(snrs):.2f} dB; {len(sub)} of them on the CPU route: SNR min "
+        f"{min(cpu_snrs):.2f} / median {float(np.median(cpu_snrs)):.2f} dB, "
+        f"each within {worst:.4f} dB of the card's; {same} of "
+        f"{len(sub) * ENC_CHUNKS * ENC_CHUNK} of their frames byte-identical "
+        "to the card's")
+    return counts
+
+
 T0 = time.perf_counter()
 
 
@@ -1540,7 +1909,8 @@ def main() -> None:
     launches = dict.fromkeys(KERNELS, 0)
     for phase in (phase_slice, phase_slice_tns, phase_slice_main,
                   phase_slice_mc, phase_decode_adts, phase_he_serving,
-                  phase_he_routes, phase_ps_serving, phase_ps_routes):
+                  phase_he_routes, phase_ps_serving, phase_ps_routes,
+                  phase_surfaces, phase_encode_serving):
         for kernel, n in phase(torch).items():
             launches[kernel] += n
     for kernel in KERNELS:

@@ -23,11 +23,12 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "host/ps_tables.npz", "host/native.py", "host/aac_960_tables.npz",
           "host/latm.py", "host/ltp_batch.py", "host/refdec.py",
           "host/sbr_pack.py", "host/sbr_decode.py", "host/ps_decode.py",
-          "host/ps_pack.py",
+          "host/ps_pack.py", "host/mp4.py", "host/native_write.py",
+          "encode.py", "encode_he.py", "aurora.py",
           "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
           "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
-          "testing/sbr_encoder.py")
+          "testing/sbr_encoder.py", "testing/mp4mux.py")
 
 _NO_JAX_DECODE = r"""
 import sys
@@ -76,6 +77,19 @@ pcm, rate = aacjax_torch.decode_adts(TI.he_ps_stream(3), chunk_frames=2,
                                      device="cpu")
 assert rate == 44100 and pcm.shape[1] == 2 and np.isfinite(pcm).all()
 assert np.abs(pcm[:, 0] - pcm[:, 1]).max() > 0.01
+# the batched encoder, an .m4a and a ranged read
+from aacjax_torch.testing.encoder import adts_frame
+enc_b = aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=2,
+                                  device="cpu")
+chunks = list(enc_b.encode_pipelined(iter([np.stack([pcm[:4096] * 32768] * 2)])))
+stream = b"".join(adts_frame(p, enc_b.config) for p in chunks[0][1])
+out, rate = aacjax_torch.decode_adts(stream, device="cpu")
+assert out.shape == (4096, 2) and np.isfinite(out).all()
+m4a = aacjax_torch.encode_m4a(pcm[:4096] * 32768, 44100)
+out, rate = aacjax_torch.decode_m4a(m4a, device="cpu")
+assert out.shape == (4096, 2)
+f = aacjax_torch.AACFile(m4a, device="cpu")
+assert np.array_equal(f.read(1000, 500), out[1000:1500])
 loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
 assert loaded == [], loaded
 print("ok", round(snr, 1))
