@@ -31,6 +31,10 @@ XLA's in the last bit, and a `floor` can turn that into a one-step
 difference in a scalefactor or a quantized value;
 tests/test_torch_encode_batch.py measures how often.
 
+Several devices (`mesh=`, runtime/mesh.py): both programs are row-local,
+so each 'stream' shard encodes its equal block of channel rows on its
+device; the rate choice stays one host pass over the gathered estimates.
+
 Quality scope: sine windows, long/short switching with the [8] grouping,
 independent L/R (no M/S), TNS/PNS/IS off; the per-stream `AACEncoder`
 remains the quality-first path, this is the high-throughput serving
@@ -54,6 +58,8 @@ from aacjax_torch.encode import (EIGHT_SHORT, PsyParams,
                                  _COST_LUTS, bands_books_and_bits,
                                  detect_transients, window_sequence_plan)
 from aacjax_torch.host.asc import make_asc, parse_asc
+from aacjax_torch.kernels import _build
+from aacjax_torch.runtime import mesh as meshlib
 
 FRAME = 1024
 
@@ -151,7 +157,7 @@ def _long_windows(frame: int = FRAME):
 # ---------------------------------------------------------------------------
 # device programs
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _analysis_fn(sample_index: int, cutoff_bin: int, frame: int,
                  n_frames: int, psy_key: tuple,
                  device: torch.device):
@@ -363,19 +369,36 @@ def _quantize_fn(w8: int = FRAME // 8):
 class BatchEncoder:
     """Encodes S concurrent same-config AAC-LC streams with the analysis
     and the quantization on `device` ("cuda" unless the caller passes
-    "cpu"; a CUDA request without CUDA raises).  See the module docstring
-    for the device/host split and the quality scope."""
+    "cpu"; a CUDA request without CUDA raises), or, with `mesh`, on the
+    first device of each of its 'stream' shards, which take equal blocks of
+    the S * channels rows (an uneven split raises ValueError).  See the
+    module docstring for the device/host split and the quality scope."""
 
     def __init__(self, sample_rate: int = 44100, channels: int = 2,
                  bitrate: int = 128_000, n_streams: int = 1,
                  cutoff_hz: float | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                "not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.device = _build.indexed(self.device)
+        self.mesh = mesh
+        # where the programs run: each stream shard's first device and its
+        # block of channel rows (one block on `device` without a mesh)
+        grid = mesh if mesh is not None else meshlib.Mesh([[self.device]])
+        if {d.type for d in grid.device_set} != {self.device.type}:
+            raise ValueError(f"mesh on {grid.device_set} for an encoder on "
+                             f"{self.device.type}")
+        if (n_streams * channels) % grid.shape["stream"]:
+            raise ValueError(
+                f"{n_streams} streams x {channels} ch = "
+                f"{n_streams * channels} channel rows do not split "
+                f"over {grid.shape['stream']} 'stream' shards")
+        self._grid = grid
+        self._blocks = meshlib._row_sharding(grid, n_streams * channels)
         si = int(np.argmin(np.abs(
             tables.SAMPLE_RATES[:12].astype(np.int64) - sample_rate)))
         if int(tables.SAMPLE_RATES[si]) != sample_rate:
@@ -548,85 +571,108 @@ class BatchEncoder:
         return out
 
     # -- device stages --------------------------------------------------------
-    def _analysis_for(self, nF: int):
-        """The (cached) analysis program for this chunk length."""
-        psy_key = (self._psy.smr_db, self._psy.spread_up_db,
-                   self._psy.spread_down_db)
-        return _analysis_fn(self._si, self._cutoff_bin, FRAME, nF, psy_key,
-                            self.device)
+    # `streams` maps each device to the CUDA stream the stage queues on
+    # (None on the CPU); every stage runs each row block on its own device.
+    def _psy_key(self) -> tuple:
+        return (self._psy.smr_db, self._psy.spread_up_db,
+                self._psy.spread_down_db)
 
-    def _new_stream(self):
-        return (torch.cuda.Stream(self.device)
+    def _analysis_for(self, nF: int):
+        """The (cached) analysis program for this chunk length on
+        self.device."""
+        return _analysis_fn(self._si, self._cutoff_bin, FRAME, nF,
+                            self._psy_key(), self.device)
+
+    def _analysis_blocks(self, nF: int):
+        """The analysis programs for this chunk length, one a row block on
+        its device: a function of lists of the blocks' inputs."""
+        return meshlib.sharded_encode_analysis(
+            self._si, self._cutoff_bin, FRAME, nF, self._psy_key(),
+            self._grid)
+
+    def _new_streams(self):
+        return ({d: torch.cuda.Stream(d) for d in self._grid.row_devices}
                 if self.device.type == "cuda" else None)
 
-    def _sync(self, stream) -> None:
-        """Wait for the work queued on `stream` (a CUDA event recorded on
-        it, then waited on); nothing to wait for on the CPU."""
-        if stream is not None:
+    def _sync(self, streams) -> None:
+        """Wait for the work queued on `streams` (a CUDA event recorded on
+        each, then waited on); nothing to wait for on the CPU."""
+        for stream in (streams or {}).values():
             ev = torch.cuda.Event()
             ev.record(stream)
             ev.synchronize()
 
-    def _upload(self, pcm_i16, w_idx, is_short, stream):
-        """Host arrays -> device tensors through pinned staging buffers,
-        queued on `stream`; returns before the copies end on CUDA."""
-        out = []
-        for a in (pcm_i16, w_idx.astype(np.int64), is_short):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if stream is not None:
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return out
+    def _upload(self, pcm_i16, w_idx, is_short, streams) -> list:
+        """Each row block's host arrays -> tensors on its device through
+        pinned staging buffers; returns before the copies end on CUDA.
+        Returns the three lists of the blocks' tensors."""
+        out = ([], [], [])
+        for (lo, hi), dev in zip(self._blocks, self._grid.row_devices):
+            for lst, a in zip(out, (pcm_i16, w_idx.astype(np.int64),
+                                    is_short)):
+                t = torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
+                if streams is not None:
+                    t = t.pin_memory().to(dev, non_blocking=True)
+                lst.append(t)
+        return list(out)
 
-    def _to_host(self, tensors, stream) -> list[np.ndarray]:
-        """Device tensors -> numpy through pinned buffers, on `stream`,
-        waited for with an event."""
-        if stream is None:
+    def _to_host(self, tensors, streams) -> list[np.ndarray]:
+        """Device tensors -> numpy through pinned buffers, on `streams`,
+        waited for with events."""
+        if streams is None:
             return [t.numpy() for t in tensors]
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
-        self._sync(stream)
+        self._sync(streams)
         return [h.numpy() for h in host]
 
-    def _on(self, stream):
-        return (torch.cuda.stream(stream) if stream is not None
-                else contextlib.nullcontext())
+    def _on(self, streams):
+        stack = contextlib.ExitStack()
+        for stream in (streams or {}).values():
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
 
-    def _analysis_stage(self, pcm_i16, w_idx, is_short, nF, stream):
-        """H2D + analysis + est D2H on `stream`.  Returns the device
-        outputs, est as numpy and the three stage times.  The host has
-        waited for the analysis to end, so the outputs can be read on any
-        stream."""
-        analysis = self._analysis_for(nF)
-        with self._on(stream):
+    def _analysis_stage(self, pcm_i16, w_idx, is_short, nF, streams):
+        """H2D + analysis + est D2H of every row block on `streams`.
+        Returns the blocks' device outputs, est as numpy (the blocks' in
+        row order) and the three stage times.  The host has waited for the
+        analysis to end, so the outputs can be read on any stream."""
+        analysis = self._analysis_blocks(nF)
+        with self._on(streams):
             t0 = time.perf_counter()
-            dev = self._upload(pcm_i16, w_idx, is_short, stream)
-            self._sync(stream)
+            dev = self._upload(pcm_i16, w_idx, is_short, streams)
+            self._sync(streams)
             t1 = time.perf_counter()
             outs = analysis(*dev)
-            self._sync(stream)
+            self._sync(streams)
             t2 = time.perf_counter()
-            est_np, = self._to_host([outs[3]], stream)
+            est_np = np.concatenate(self._to_host([o[3] for o in outs],
+                                                  streams))
             t3 = time.perf_counter()
         return outs, est_np, (t1 - t0, t2 - t1, t3 - t2)
 
-    def _quantize_stage(self, outs, off, short_flat, stream):
-        """Quantize launch + q/sf D2H on `stream`.  Returns (packed q, sf,
-        quantize time, D2H time)."""
-        with self._on(stream):
+    def _quantize_stage(self, outs, off, short_flat, streams):
+        """Quantize launch + q/sf D2H of every row block on `streams`.
+        Returns (packed q, sf, quantize time, D2H time), rows in order."""
+        nF = len(off) // self._blocks[-1][1]
+        with self._on(streams):
             t0 = time.perf_counter()
-            coefs, base, fit_sf, _est, bin_band = outs
-            dev = coefs.device
-            q_dev, sf_dev = self._quantize(
-                coefs, base, fit_sf, bin_band,
-                torch.from_numpy(off).to(dev),
-                torch.from_numpy(short_flat).to(dev))
-            self._sync(stream)
+            offs, shorts = [], []
+            for (lo, hi), o in zip(self._blocks, outs):
+                dev = o[0].device
+                offs.append(torch.from_numpy(off[lo * nF:hi * nF]).to(dev))
+                shorts.append(torch.from_numpy(
+                    short_flat[lo * nF:hi * nF]).to(dev))
+            res = meshlib.sharded_encode_quantize(self._grid, self._w8)(
+                outs, offs, shorts)
+            self._sync(streams)
             t1 = time.perf_counter()
-            q_packed, sf = self._to_host([q_dev, sf_dev], stream)
+            host = self._to_host([t for qs in res for t in qs], streams)
             t2 = time.perf_counter()
+        q_packed = np.concatenate(host[0::2])
+        sf = np.concatenate(host[1::2])
         return q_packed, sf, t1 - t0, t2 - t1
 
     # -- encode -------------------------------------------------------------
@@ -639,10 +685,11 @@ class BatchEncoder:
         seqs, pcm_i16, w_idx, is_short, nF = self._prep_chunk(pcm)
         self.stats["host_s"] += time.perf_counter() - t0
 
-        stream = (torch.cuda.current_stream(self.device)
-                  if self.device.type == "cuda" else None)
+        streams = ({d: torch.cuda.current_stream(d)
+                    for d in self._grid.row_devices}
+                   if self.device.type == "cuda" else None)
         outs, est_np, (h2d, ana, d2h) = self._analysis_stage(
-            pcm_i16, w_idx, is_short, nF, stream)
+            pcm_i16, w_idx, is_short, nF, streams)
         self.stats["h2d_s"] += h2d
         self.stats["analysis_s"] += ana
         self.stats["d2h_s"] += d2h
@@ -653,7 +700,7 @@ class BatchEncoder:
 
         short_flat = is_short.reshape(-1)
         q_packed, sf, qs, d2h = self._quantize_stage(outs, off, short_flat,
-                                                     stream)
+                                                     streams)
         self.stats["analysis_s"] += qs
         self.stats["d2h_s"] += d2h
         t0 = time.perf_counter()
@@ -688,7 +735,7 @@ class BatchEncoder:
         lists in chunk order."""
         up_pool = concurrent.futures.ThreadPoolExecutor(1)
         down_pool = concurrent.futures.ThreadPoolExecutor(1)
-        up_stream, down_stream = self._new_stream(), self._new_stream()
+        up_stream, down_stream = self._new_streams(), self._new_streams()
 
         def upload_analysis(pcm_i16, w_idx, is_short, nF):
             outs, est_np, (h2d, ana, d2h) = self._analysis_stage(

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "aacjax_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -119,9 +121,12 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point `name`; raise if the launch reported a CUDA error."""
-    err = getattr(lib(), name)(*args)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point `name` with `device` current (the entry points read
+    the current device, and their stream argument belongs to `device`);
+    raise if the launch reported a CUDA error."""
+    with torch.cuda.device(device):
+        err = getattr(lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
@@ -147,3 +152,29 @@ def require_cuda(t, what: str) -> None:
     (the kernel); anything else is refused."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {t.device}; expected cpu or cuda")
+
+
+def indexed(device) -> torch.device:
+    """`device` with its index: a bare "cuda" names the current CUDA device,
+    which a later `torch.cuda.set_device` changes, so caches and meshes key
+    on `cuda:<index>` instead."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def per_device(fn):
+    """`functools.lru_cache` for a function of constants on a device: every
+    `torch.device` argument is keyed by its indexed form (`indexed`)."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        args = tuple(indexed(a) if isinstance(a, torch.device) else a
+                     for a in args)
+        kwargs = {k: indexed(v) if isinstance(v, torch.device) else v
+                  for k, v in kwargs.items()}
+        return cached(*args, **kwargs)
+
+    return wrapper

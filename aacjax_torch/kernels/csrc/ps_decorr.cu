@@ -73,6 +73,7 @@ constexpr int HALF = SLOTS / 2;     // d leaves in two halves of rows
 constexpr int CHUNK = 8;            // slots or plan entries loaded at once
 constexpr int ROWS = 4;             // a warp's rows in half a tile (>= 4 warps)
 constexpr int PAD = SLOTS + 1;      // row stride of the [band][slot] planes
+constexpr int MAX_DEVICES = 64;     // devices whose shared-memory opt-in is kept
 constexpr int SPARE_WARPS = 2;      // warps with no walk of their own
 constexpr int MAX_NB = 96;          // bands a lane covers in 3 steps of 32
 constexpr int BARRIER_BYTES = 128;  // the ring's mbarriers, ahead of the ring
@@ -542,13 +543,20 @@ extern "C" int aacjax_ps_decorrelate(
       warps_for(npar, nap) * ROWS < HALF)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes(nb, npar, nap);
-  static size_t opted = 0;              // the dynamic shared memory allowed
-  if (bytes > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ps_decorrelate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+  // the dynamic shared memory allowed, per device: the attribute belongs to
+  // the current device's instance of the kernel
+  static size_t opted[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= MAX_DEVICES)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (bytes > opted[dev]) {
+    err = cudaFuncSetAttribute(ps_decorrelate_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted = bytes;
+    opted[dev] = bytes;
   }
   ps_decorrelate_kernel<<<B, 32 * warps_for(npar, nap), bytes,
                           static_cast<cudaStream_t>(stream)>>>(

@@ -30,14 +30,13 @@ version.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from aacjax_torch import tables
-from aacjax_torch.kernels import imdct
+from aacjax_torch.kernels import _build, imdct
 from aacjax_torch.kernels import windows as W
 
 FRAME = 1024
@@ -64,7 +63,7 @@ class PipelineFlags:
     eld: bool = False         # AAC-ELD low-delay filterbank
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def consts(device: torch.device, frame_len: int = FRAME
            ) -> dict[str, torch.Tensor]:
     """Constant tables on `device` for frames of `frame_len` samples: the
@@ -83,7 +82,7 @@ def consts(device: torch.device, frame_len: int = FRAME
     return {k: torch.from_numpy(v.copy()).to(device) for k, v in tabs.items()}
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _qsf_luts(device: torch.device):
     """Dequantization tables of the q/sf transfer, equal to the native
     parser's (float64 pow, then the f32 cast): iq_lut[i] = i^(4/3) for
@@ -95,7 +94,7 @@ def _qsf_luts(device: torch.device):
     return torch.from_numpy(iq).to(device), torch.from_numpy(sf).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _eld_matrix(device: torch.device, frame_len: int) -> torch.Tensor:
     m = tables.eld_synthesis_matrix(frame_len).astype(np.float32)
     return torch.from_numpy(m).to(device)
@@ -343,30 +342,47 @@ def _synthesize(spec, b, overlap_in, flags: PipelineFlags):
 
 
 # -- the two steps ----------------------------------------------------------------
-def decode_step(batch: dict, overlap_in: torch.Tensor, flags: PipelineFlags,
-                pred_state: torch.Tensor | None = None):
-    """Decode one chunk packed by `runtime.pack.pack_frames` (tensors on one
-    device; index planes int32).  Returns (pcm [C,T,F] in the 1/32768 float
-    scale or int16, new overlap), plus the new predictor state when
-    flags.has_pred."""
-    from aacjax_torch.kernels import pred, tns
-    pred_fn = pred.apply_prediction if flags.use_pallas else \
-        pred.apply_prediction_ref
-    tns_fn = tns.tns if flags.use_pallas else tns.tns_ref
+# Each step is front -> prediction (Main profile) -> back.  The steps run the
+# three in order; a frame-sharded chunk (runtime/mesh.py) runs the fronts and
+# backs shard by shard and hands the predictor state from shard to shard.
+def step_front(batch: dict, flags: PipelineFlags) -> torch.Tensor:
+    """decode_step up to the predictor: dequantization and stereo (M/S
+    only when the predictor follows)."""
     spec = dequantize(batch["quant"], batch["scale"], batch["noise"])
     if flags.has_pred:
         # Main profile: the backward predictor sits between M/S and
         # intensity
-        spec = stereo_ms(spec, batch["pair_l"], batch["pair_r"],
+        return stereo_ms(spec, batch["pair_l"], batch["pair_r"],
                          batch["ms_mask"])
-        spec, pred_state = pred_fn(
-            spec, batch["pred_mode"], batch["pred_reset"],
-            batch["pred_nbins"], batch["pred_used"], pred_state)
+    if flags.has_stereo:
+        return stereo(spec, batch["pair_l"], batch["pair_r"],
+                      batch["ms_mask"], batch["is_scale"])
+    return spec
+
+
+def predict(spec, b: dict, pred_state, flags: PipelineFlags,
+            inplace: bool = False):
+    """The Main-profile predictor over the chunk's frames in order: the
+    kernel with flags.use_pallas (updating spec in place when `inplace`),
+    else its plain version.  Returns (spec, new state)."""
+    from aacjax_torch.kernels import pred
+    args = (spec, b["pred_mode"], b["pred_reset"], b["pred_nbins"],
+            b["pred_used"], pred_state)
+    if flags.use_pallas:
+        return pred.apply_prediction(*args, inplace=inplace)
+    return pred.apply_prediction_ref(*args)
+
+
+def step_back(spec, batch: dict, overlap_in: torch.Tensor,
+              flags: PipelineFlags):
+    """decode_step after the predictor: intensity (Main profile), coupling
+    before and after TNS, TNS, the filterbank, coupling on the PCM and the
+    pack.  Returns (pcm, new overlap)."""
+    from aacjax_torch.kernels import tns
+    tns_fn = tns.tns if flags.use_pallas else tns.tns_ref
+    if flags.has_pred:
         spec = stereo_is(spec, batch["pair_l"], batch["pair_r"],
                          batch["is_scale"])
-    elif flags.has_stereo:
-        spec = stereo(spec, batch["pair_l"], batch["pair_r"],
-                      batch["ms_mask"], batch["is_scale"])
     if flags.has_cce:
         spec = couple_spectral(spec, batch["cce_src_pre"],
                                batch["cce_dst_pre"], batch["cce_gain_pre"])
@@ -381,10 +397,69 @@ def decode_step(batch: dict, overlap_in: torch.Tensor, flags: PipelineFlags,
     if flags.has_cce:
         pcm = couple_time(pcm, batch["cce_src_time"], batch["cce_dst_time"],
                           batch["cce_gain_time"])
-    out = pack_pcm(pcm, flags.out_int16)
+    return pack_pcm(pcm, flags.out_int16), new_overlap
+
+
+def decode_step(batch: dict, overlap_in: torch.Tensor, flags: PipelineFlags,
+                pred_state: torch.Tensor | None = None):
+    """Decode one chunk packed by `runtime.pack.pack_frames` (tensors on one
+    device; index planes int32).  Returns (pcm [C,T,F] in the 1/32768 float
+    scale or int16, new overlap), plus the new predictor state when
+    flags.has_pred."""
+    spec = step_front(batch, flags)
     if flags.has_pred:
-        return out, new_overlap, pred_state
-    return out, new_overlap
+        spec, pred_state = predict(spec, batch, pred_state, flags)
+    out = step_back(spec, batch, overlap_in, flags)
+    return (*out, pred_state) if flags.has_pred else out
+
+
+def spec_front(b: dict, flags: PipelineFlags):
+    """decode_spec_step up to the predictor, on an unpacked batch: the f32
+    spectra, or None where the TNS kernel reads the compact int16 spectra
+    as they arrive."""
+    if flags.spec_qsf:
+        return dequant_qsf(b["spec_q"], b["spec_sf"])
+    if flags.spec_i16 and not _packed_tns(flags):
+        return decompress_i16(b["spec_i16"], b["spec_scale"])
+    if not flags.spec_i16:
+        return b["spec"]
+    return None
+
+
+def _packed_tns(flags: PipelineFlags) -> bool:
+    return flags.has_tns and flags.spec_i16 and not flags.has_pred
+
+
+def spec_back(spec, b: dict, overlap_in: torch.Tensor, flags: PipelineFlags):
+    """decode_spec_step after the predictor, on an unpacked batch: TNS,
+    coupling after TNS, the fused tail or the filterbank and overlap-add,
+    coupling on the PCM, concealment and the pack.  Returns (pcm, new
+    overlap)."""
+    from aacjax_torch.kernels import tail, tns
+    spec_arr = spec if spec is not None else b["spec_i16"]
+    C, T, F = spec_arr.shape
+    if flags.has_tns:
+        tns_fn = tns.tns_packed if flags.use_pallas else tns.tns_packed_ref
+        # the TNS kernel reads compact spectra as they arrive
+        spec = (tns_fn(b["spec_i16"], b["spec_scale"], b["tns_lpc"],
+                       b["tns_range"]) if _packed_tns(flags)
+                else tns_fn(spec, None, b["tns_lpc"], b["tns_range"]))
+    if flags.has_cce_post:
+        # AFTER_TNS dependent coupling onto TNS'd targets
+        spec = _couple_entries(spec, b["cce_post_src"], b["cce_post_dst"],
+                               b["cce_post_t"], b["cce_post_gain"])
+    if flags.use_pallas and tail.supported(flags, C, T, F):
+        return tail.decode_tail(
+            spec, None, b["f_idx"], b["s_idx"], b["shape_idx"],
+            b["prev_shape_idx"], b["is_short"], b["valid"], b["last_valid"],
+            overlap_in, out_int16=flags.out_int16, has_short=flags.has_short)
+    pcm, new_overlap = _synthesize(spec, b, overlap_in, flags)
+    if flags.has_cce_time:
+        # AFTER_IMDCT independent coupling on time samples: the coupling
+        # channel went through its own slot's filterbank
+        pcm = _couple_entries(pcm, b["cce_time_src"], b["cce_time_dst"],
+                              b["cce_time_t"], b["cce_time_gain"][:, None])
+    return conceal_and_pack(pcm, b["valid"], flags.out_int16), new_overlap
 
 
 def decode_spec_step(batch: dict, overlap_in: torch.Tensor,
@@ -400,58 +475,25 @@ def decode_spec_step(batch: dict, overlap_in: torch.Tensor,
 
     With flags.use_pallas the step consumes its batch: the predictor kernel
     updates batch['spec'] in place.  The plain route leaves it untouched."""
-    from aacjax_torch.kernels import pred, tail, tns
+    from aacjax_torch.kernels import tail
 
     b = unpack_spec_batch(batch)
     spec_arr = (b["spec_q"] if flags.spec_qsf else b["spec_i16"]
                 if flags.spec_i16 else b["spec"])
     C, T, F = spec_arr.shape
-    use_tail = flags.use_pallas and tail.supported(flags, C, T, F)
-    idx = (b["f_idx"], b["s_idx"], b["shape_idx"], b["prev_shape_idx"],
-           b["is_short"])
-    if use_tail and flags.spec_i16 and not flags.has_tns:
+    if (flags.use_pallas and tail.supported(flags, C, T, F)
+            and flags.spec_i16 and not flags.has_tns):
         # fully fused: the kernel decompresses the int16 spectra itself
         return tail.decode_tail(
-            b["spec_i16"], b["spec_scale"], *idx, b["valid"], b["last_valid"],
-            overlap_in, out_int16=flags.out_int16, has_short=flags.has_short)
-    packed_tns = flags.has_tns and flags.spec_i16 and not flags.has_pred
-    if flags.spec_qsf:
-        spec = dequant_qsf(b["spec_q"], b["spec_sf"])
-    elif flags.spec_i16 and not packed_tns:
-        spec = decompress_i16(b["spec_i16"], b["spec_scale"])
-    elif not flags.spec_i16:
-        spec = b["spec"]
+            b["spec_i16"], b["spec_scale"], b["f_idx"], b["s_idx"],
+            b["shape_idx"], b["prev_shape_idx"], b["is_short"], b["valid"],
+            b["last_valid"], overlap_in, out_int16=flags.out_int16,
+            has_short=flags.has_short)
+    spec = spec_front(b, flags)
     if flags.has_pred:
         # the native parser fuses M/S (which precedes prediction) on the
         # host and delegates intensity and coupling content (which must
         # follow it), so the stage runs first here
-        args = (spec, b["pred_mode"], b["pred_reset"], b["pred_nbins"],
-                b["pred_used"], pred_state)
-        if flags.use_pallas:
-            spec, pred_state = pred.apply_prediction(*args, inplace=True)
-        else:
-            spec, pred_state = pred.apply_prediction_ref(*args)
-    if flags.has_tns:
-        tns_fn = tns.tns_packed if flags.use_pallas else tns.tns_packed_ref
-        # the TNS kernel reads compact spectra as they arrive
-        spec = (tns_fn(b["spec_i16"], b["spec_scale"], b["tns_lpc"],
-                       b["tns_range"]) if packed_tns
-                else tns_fn(spec, None, b["tns_lpc"], b["tns_range"]))
-    if flags.has_cce_post:
-        # AFTER_TNS dependent coupling onto TNS'd targets
-        spec = _couple_entries(spec, b["cce_post_src"], b["cce_post_dst"],
-                               b["cce_post_t"], b["cce_post_gain"])
-    if use_tail:
-        return tail.decode_tail(
-            spec, None, *idx, b["valid"], b["last_valid"], overlap_in,
-            out_int16=flags.out_int16, has_short=flags.has_short)
-    pcm, new_overlap = _synthesize(spec, b, overlap_in, flags)
-    if flags.has_cce_time:
-        # AFTER_IMDCT independent coupling on time samples: the coupling
-        # channel went through its own slot's filterbank
-        pcm = _couple_entries(pcm, b["cce_time_src"], b["cce_time_dst"],
-                              b["cce_time_t"], b["cce_time_gain"][:, None])
-    out = conceal_and_pack(pcm, b["valid"], flags.out_int16)
-    if flags.has_pred:
-        return out, new_overlap, pred_state
-    return out, new_overlap
+        spec, pred_state = predict(spec, b, pred_state, flags, inplace=True)
+    out = spec_back(spec, b, overlap_in, flags)
+    return (*out, pred_state) if flags.has_pred else out

@@ -131,7 +131,7 @@ def apply_prediction(spec, mode, reset, nbins, used, state,
     ptrs.append(ck(state, "state", torch.float32, (C, PRED_BINS, 6), dev,
                    align=8))
     new_state = torch.empty_like(state)
-    _build.launch("aacjax_pred", *ptrs, new_state.data_ptr(), C, T, F,
+    _build.launch("aacjax_pred", dev, *ptrs, new_state.data_ptr(), C, T, F,
                   torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out, new_state

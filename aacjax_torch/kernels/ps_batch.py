@@ -34,7 +34,7 @@ import torch
 
 from aacjax_torch.host import ps as P
 from aacjax_torch.host.ps_decode import _make_filter, _tables
-from aacjax_torch.kernels import ps_decorr, qmf
+from aacjax_torch.kernels import _build, ps_decorr, qmf
 
 SLOTS = 32
 MAX_DELAY = 14
@@ -103,7 +103,7 @@ def consts_np(is34: bool = False) -> dict:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _consts(is34: bool, device: torch.device) -> dict:
     """consts_np on `device`: the complex filters of each low QMF band as
     one real [26, 2q] matrix (the window's re | im rows against the

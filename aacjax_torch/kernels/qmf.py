@@ -29,6 +29,8 @@ import pathlib
 import numpy as np
 import torch
 
+from aacjax_torch.kernels import _build
+
 _SBR_NPZ = pathlib.Path(__file__).parent.parent / "host" / "sbr_tables.npz"
 
 ANA_BANDS = 32      # analysis bands (core rate)
@@ -105,7 +107,7 @@ def _synthesis_consts():
             taps_j, taps_r, taps_w.astype(np.float32))
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _device_consts(device: torch.device) -> dict[str, torch.Tensor]:
     """The banks' constants on `device`: the analysis window rows [5, 64]
     and cos | sin matrix [64, 64]; the synthesis matrix [128, 128] that maps

@@ -28,14 +28,13 @@ data (cfg planes), so one batch may mix SBR headers.
 """
 from __future__ import annotations
 
-import functools
 import pathlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from aacjax_torch.kernels import qmf
+from aacjax_torch.kernels import _build, qmf
 
 MAX_ENV = 5
 BANDS = 64
@@ -125,7 +124,7 @@ def broadcast_cfg(cfg: SBRStaticConfig, B: int) -> dict:
     return planes
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_device
 def _noise_table(device: torch.device) -> torch.Tensor:
     d = np.load(pathlib.Path(__file__).parent.parent / "host"
                 / "sbr_tables.npz")

@@ -37,10 +37,21 @@ the right one to the spare.  A slot whose SBR header changes mid-chunk, or
 whose PS band scheme flips with state carried, replays that chunk on the
 float64 per-channel path (host/sbr_decode.py, host/ps_decode.py) and
 rejoins the batched path at the next chunk boundary.
+
+Several devices (`mesh=` on decode_pipelined, step_he_raw and
+decode_he_pipelined; runtime/mesh.py): each stream shard's slice of the
+pinned parse buffers lands on its own devices, on their copy streams, the
+shards' steps run on their devices' compute streams, and each shard's PCM
+comes back into its rows of the pinned output.  A call without a mesh runs
+the same code on a one-shard mesh of self.device.  The carried state lives
+as row blocks on the stream shards' first devices; a call with another
+mesh gathers and re-splits it, and stream resets write into the blocks in
+place, so a decoder stays one decoder whatever meshes its calls use.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -56,10 +67,12 @@ from aacjax_torch.host import sbr_pack as SP
 from aacjax_torch.host.asc import StreamConfig
 from aacjax_torch.host.bitio import BitReader
 from aacjax_torch.host.syntax import CPEData, Frame, SCEData, decode_frame
+from aacjax_torch.kernels import _build
 from aacjax_torch.kernels import pipeline as P
 from aacjax_torch.kernels import pred
 from aacjax_torch.kernels import ps_batch as PB
 from aacjax_torch.kernels import sbr_batch as SB
+from aacjax_torch.runtime import mesh as meshlib
 from aacjax_torch.runtime.pack import SlotOverflowError, pack_frames
 from aacjax_torch.runtime.stats import DecodeStats
 
@@ -161,6 +174,7 @@ class BatchDecoder:
                                "not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.device = _build.indexed(self.device)
         self.T = chunk_frames
         self.drc_scale = drc_scale
         self._cce_slots = cce_slots
@@ -217,10 +231,14 @@ class BatchDecoder:
         self._tables_pack = (native.stream_tables(configs)
                              if self.use_native else None)
         self._cuda = self.device.type == "cuda"
+        # per device the (copy up, compute, copy down) CUDA streams
+        self._dev_streams: dict = {}
         if self._cuda:
-            self._h2d_stream = torch.cuda.Stream(self.device)
-            self._compute_stream = torch.cuda.Stream(self.device)
-            self._d2h_stream = torch.cuda.Stream(self.device)
+            (self._h2d_stream, self._compute_stream,
+             self._d2h_stream) = self._streams(self.device)
+        self._layouts: dict = {}
+        # a call without a mesh runs on this one-shard mesh
+        self._home = meshlib.Mesh([[self.device]])
         self._ov_width = 3 * self.F if self._eld else self.F
         self._set_overlap(np.zeros((c, self._ov_width), np.float32))
         self._pred_state: torch.Tensor | None = None
@@ -256,6 +274,92 @@ class BatchDecoder:
         self._last_consumed = np.zeros(1, np.int64)
         self.stats = DecodeStats(
             sample_rate=configs[0].sample_rate if configs else 44100)
+
+    # -- carried state, whole or in row blocks -------------------------------
+    # Each carried state is whole on self.device or meshlib.RowBlocks on the
+    # stream shards' first devices of the mesh the last call ran on (a call
+    # without a mesh runs on self._home, one block on self.device).  Reading
+    # it through these properties gathers it whole; a step takes it through
+    # _sharded.
+    @property
+    def overlap(self) -> torch.Tensor:
+        """The carried overlap [C, F] ([C, 3F] for ELD) on self.device."""
+        self._ov = self._whole(self._ov)
+        return self._ov
+
+    @overlap.setter
+    def overlap(self, value) -> None:
+        self._ov = value
+
+    @property
+    def _pred_state(self):
+        self._pred = self._whole(self._pred)
+        return self._pred
+
+    @_pred_state.setter
+    def _pred_state(self, value) -> None:
+        self._pred = value
+
+    @property
+    def _sbr_dev_state(self) -> dict:
+        self._sbr_dev = self._whole(self._sbr_dev)
+        return self._sbr_dev
+
+    @_sbr_dev_state.setter
+    def _sbr_dev_state(self, value) -> None:
+        self._sbr_dev = value
+
+    @property
+    def _ps_dev_states(self) -> dict:
+        self._ps_dev = {m: self._whole(v) for m, v in self._ps_dev.items()}
+        return self._ps_dev
+
+    @_ps_dev_states.setter
+    def _ps_dev_states(self, value) -> None:
+        self._ps_dev = value
+
+    def _whole(self, x):
+        """x whole on self.device (row blocks gathered after their devices'
+        compute streams drained; a single block on self.device is the whole
+        as it stands)."""
+        if not isinstance(x, meshlib.RowBlocks):
+            return x
+        if x.devices == (self.device,):
+            return meshlib.gather(x, self.device)
+        self._sync_compute()
+        with self._on_devices(x.devices):
+            return meshlib.gather(x, self.device)
+
+    def _sharded(self, x, mesh: meshlib.Mesh, rows: tuple):
+        """x (whole or row blocks) as row blocks over `rows` on the mesh's
+        stream shards, re-split when its blocks differ."""
+        if x is None or (isinstance(x, meshlib.RowBlocks)
+                         and x.matches(rows, mesh.row_devices)):
+            return x
+        x = self._whole(x)
+        with self._on_mesh(mesh):
+            return meshlib.scatter(x, rows, mesh.row_devices)
+
+    def _mesh(self, mesh) -> meshlib.Mesh:
+        """The mesh a call runs on (self._home for None); an uneven split
+        raises here."""
+        mesh = self._home if mesh is None else mesh
+        self._layout(mesh)
+        return mesh
+
+    def _layout(self, mesh: meshlib.Mesh) -> meshlib.Layout:
+        """How this decoder's chunks split over `mesh` (whole streams a
+        stream shard; ELD reads three frames back)."""
+        lay = self._layouts.get(mesh)
+        if lay is None:
+            kinds = {d.type for d in mesh.device_set}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh on {sorted(kinds)} for a decoder on "
+                                 f"{self.device.type}")
+            lay = self._layouts[mesh] = meshlib.layout(
+                mesh, [st.n_slots for st in self.streams], self.T,
+                halo=3 if self._eld else 1)
+        return lay
 
     # -- buffers and state ---------------------------------------------------
     def _alloc_buffer(self) -> tuple[native.SpecBatchArrays, dict]:
@@ -313,12 +417,42 @@ class BatchDecoder:
              for name, (dtype, dims, kind) in _PS_FIELDS.items()}
             for _ in range(2)]
 
+    def _streams(self, dev: torch.device) -> tuple:
+        """The (copy up, compute, copy down) CUDA streams of `dev`."""
+        s = self._dev_streams.get(dev)
+        if s is None:
+            s = self._dev_streams[dev] = tuple(torch.cuda.Stream(dev)
+                                               for _ in range(3))
+        return s
+
     def _on_compute(self):
         """Context in which device work joins the compute stream."""
         if self._cuda:
             return torch.cuda.stream(self._compute_stream)
-        import contextlib
         return contextlib.nullcontext()
+
+    def _on_devices(self, devices):
+        """Context in which each of `devices` (and self.device) has its
+        compute stream current: work on any of them, and the copies
+        between them, join those streams in order."""
+        stack = contextlib.ExitStack()
+        if self._cuda:
+            for dev in dict.fromkeys((self.device, *devices)):
+                stack.enter_context(torch.cuda.stream(self._streams(dev)[1]))
+        return stack
+
+    def _on_mesh(self, mesh: meshlib.Mesh):
+        return self._on_devices(mesh.device_set)
+
+    def _record_done(self, devices) -> dict:
+        """Per device an event on its compute stream (none on the CPU)."""
+        if not self._cuda:
+            return {}
+        done = {}
+        for dev in dict.fromkeys(devices):
+            done[dev] = torch.cuda.Event()
+            done[dev].record(self._streams(dev)[1])
+        return done
 
     def _set_overlap(self, overlap: np.ndarray) -> None:
         ov = torch.from_numpy(np.array(overlap, np.float32))   # a copy
@@ -329,8 +463,8 @@ class BatchDecoder:
             self.overlap = ov.to(self.device)
 
     def _sync_compute(self) -> None:
-        if self._cuda:
-            self._compute_stream.synchronize()
+        for _, compute, _ in self._dev_streams.values():
+            compute.synchronize()
 
     # -- host parse: the python route ------------------------------------------
     def parse_stream_frames(self, stream_idx: int,
@@ -359,15 +493,6 @@ class BatchDecoder:
                 st.prev_shapes[ch + 1] = elem.right.info.window_shape
                 ch += 2
 
-    def _to_device(self, name: str, a: np.ndarray) -> torch.Tensor:
-        """A packed numpy array as the device step takes it: flags as
-        int32, the predictor's `used` mask as uint8."""
-        if a.dtype == np.bool_:
-            a = a.astype(np.int32)
-        elif name == "pred_used":
-            a = a.astype(np.uint8)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def step(self, frames_per_stream: list[list[Frame] | None]) -> np.ndarray:
         """Run one chunk of python-parsed frames: frames_per_stream[i] is
         up to T frames for stream i (None or empty to skip).  The packer's
@@ -384,18 +509,40 @@ class BatchDecoder:
                 limits.append(st.n_slots)
         batch, flags = pack_frames(per_slot, self.C, self.T, limits,
                                    frame_len=self.F, eld=self._eld)
-        flags = dataclasses.replace(flags, use_pallas=True)
+        pcm = self._packed_step(batch, flags, self._home)
         with self._on_compute():
-            dev = {k: self._to_device(k, v) for k, v in batch.items()}
-            if flags.has_pred:
-                if self._pred_state is None:
-                    self._pred_state = pred.pred_state_init(self.C,
-                                                            self.device)
-                pcm, self.overlap, self._pred_state = P.decode_step(
-                    dev, self.overlap, flags, self._pred_state)
-            else:
-                pcm, self.overlap = P.decode_step(dev, self.overlap, flags)
-            return pcm.cpu().numpy()
+            return meshlib.gather(pcm, self.device).cpu().numpy()
+
+    def _packed_step(self, batch: dict, flags: P.PipelineFlags,
+                     mesh: meshlib.Mesh) -> meshlib.RowBlocks:
+        """The python packer's numpy batch through decode_step over `mesh`
+        (meshlib.shard_batch): the PCM as row blocks."""
+        flags = dataclasses.replace(flags, use_pallas=True)
+        lay = self._layout(mesh)
+        with self._on_mesh(mesh):
+            shards = meshlib.shard_batch(mesh, batch, lay)
+        return self._run_step(meshlib.sharded_decode_step(flags, mesh),
+                              shards, flags, mesh)
+
+    def _run_step(self, step, shards: meshlib.Shards, flags: P.PipelineFlags,
+                  mesh: meshlib.Mesh) -> meshlib.RowBlocks:
+        """One sharded decode step on every shard's compute stream: the
+        overlap and, with flags.has_pred, the predictor state (made per
+        shard at first use) go in as row blocks on the stream shards and are
+        replaced by the step's.  Returns the PCM as row blocks."""
+        rows = shards.layout.rows
+        ov = self._sharded(self._ov, mesh, rows)
+        with self._on_mesh(mesh):
+            if not flags.has_pred:
+                pcm, self._ov = step(shards, ov)
+                return pcm
+            if self._pred is None:
+                self._pred = meshlib.RowBlocks(
+                    [pred.pred_state_init(hi - lo, dev) for (lo, hi), dev
+                     in zip(rows, mesh.row_devices)], rows, mesh.row_devices)
+            state = self._sharded(self._pred, mesh, rows)
+            pcm, self._ov, self._pred = step(shards, ov, state)
+            return pcm
 
     def _step_python_raw(self, payloads_per_stream) -> np.ndarray:
         """The python-parser route with the native route's per-stream error
@@ -446,11 +593,9 @@ class BatchDecoder:
         if self._buffers is None:
             raise RuntimeError("this decoder was made with use_native=False")
         arrays, host = self._buffers[buf_slot]
-        ev = self._h2d_done[buf_slot]
-        if ev is not None:
-            # the previous copy out of this buffer must have landed before
-            # the parser overwrites it
-            ev.synchronize()
+        # the previous copies out of this buffer must have landed before the
+        # parser overwrites it
+        _wait(self._h2d_done[buf_slot])
         t0 = time.perf_counter()
         status, has_tns, errmsg = native.parse_batch_spec(
             payloads_per_stream, self._sample_indices, self._chan_configs,
@@ -551,86 +696,113 @@ class BatchDecoder:
                     out.spec[st.base_slot + c, t] *= gain_bin
 
     # -- device step ---------------------------------------------------------
-    def _upload_batch(self, batch: dict) -> dict:
-        """Host-to-device stage: on CUDA, asynchronous copies from the pinned
-        buffer on the copy stream; the compute stream waits on their event,
-        and so does the next parse into the same buffer."""
+    def _upload_batch(self, batch: dict, mesh=None) -> dict:
+        """Host-to-device stage: each shard's slice of the pinned parse
+        buffers (meshlib.spec_batch_shardings; the whole buffer without a
+        mesh) lands on its own device, on CUDA by asynchronous copies on that
+        device's copy stream, which its compute stream waits for; so does
+        the next parse into the buffer.  Returns {"_shards": meshlib.Shards,
+        **facts}."""
+        mesh = self._mesh(mesh)
         arrs = {k: v for k, v in batch.items() if not k.startswith("_")}
         facts = {k: v for k, v in batch.items() if k.startswith("_")}
+        lay = self._layout(mesh)
+        host = meshlib.spec_batch_shardings(mesh, arrs, lay)
         if not self._cuda:
-            return {**arrs, **facts}
-        with torch.cuda.stream(self._h2d_stream):
-            dev = {k: v.to(self.device, non_blocking=True)
-                   for k, v in arrs.items()}
-            ev = torch.cuda.Event()
-            ev.record(self._h2d_stream)
-        self._h2d_done[batch["_slot"]] = ev
-        self._compute_stream.wait_event(ev)
-        for v in dev.values():
-            v.record_stream(self._compute_stream)
-        return {**dev, **facts}
+            return {"_shards": meshlib.Shards(host, lay), **facts}
+        events, parts = [], []
+        for i, row in enumerate(host):
+            parts.append([])
+            for k, shard in enumerate(row):
+                dev = mesh.devices[i][k]
+                h2d, compute, _ = self._streams(dev)
+                with torch.cuda.stream(h2d):
+                    d = {key: _pinned(v).to(dev, non_blocking=True)
+                         for key, v in shard.items()}
+                    ev = torch.cuda.Event()
+                    ev.record(h2d)
+                compute.wait_event(ev)
+                for v in d.values():
+                    v.record_stream(compute)
+                events.append(ev)
+                parts[i].append(d)
+        self._h2d_done[facts["_slot"]] = events
+        return {"_shards": meshlib.Shards(parts, lay), **facts}
 
-    def _device_step(self, batch: dict, out_int16: bool,
-                     use_pallas: bool = True):
-        """Dispatch decode_spec_step for an uploaded batch on the compute
-        stream; returns the PCM on the device.  The overlap and, for a batch
-        with a Main-profile stream, the predictor state (made at first use)
-        are replaced by the step's results.  finalize_step completes the
-        timing record."""
-        facts = {k: batch.pop(k) for k in list(batch) if k.startswith("_")}
-        flags = P.PipelineFlags(
+    def _spec_flags(self, facts: dict, out_int16: bool,
+                    use_pallas: bool) -> P.PipelineFlags:
+        return P.PipelineFlags(
             has_stereo=False, has_tns=facts["_has_tns"], out_int16=out_int16,
             use_pallas=use_pallas, has_cce_post=facts["_has_cce_post"],
             has_cce_time=facts["_has_cce_time"], spec_i16=facts["_spec_i16"],
-            spec_qsf=facts["_spec_qsf"], has_pred=facts["_has_pred"], has_short=facts["_has_short"],
-            eld=self._eld)
-        t0 = time.perf_counter()
-        done = None
-        with self._on_compute():
-            if flags.has_pred:
-                if self._pred_state is None:
-                    self._pred_state = pred.pred_state_init(self.C,
-                                                            self.device)
-                pcm, self.overlap, self._pred_state = P.decode_spec_step(
-                    batch, self.overlap, flags, self._pred_state)
-            else:
-                pcm, self.overlap = P.decode_spec_step(batch, self.overlap,
-                                                       flags)
-            if self._cuda:
-                done = torch.cuda.Event()
-                done.record(self._compute_stream)
+            spec_qsf=facts["_spec_qsf"], has_pred=facts["_has_pred"],
+            has_short=facts["_has_short"], eld=self._eld)
+
+    def _pend(self, pcm, t0: float, facts: dict, done) -> None:
+        """Open the stats record that finalize_step completes."""
         if len(self._pending_steps) > 16:  # caller never finalized; bound it
             self._pending_steps.clear()
         self._pending_steps[id(pcm)] = (
             t0, facts["_parse_seconds"], facts["_n_stream_frames"],
             facts["_n_channel_frames"], done)
         self.stats.streams_failed = sum(st.failed for st in self.streams)
+
+    def _device_step(self, batch: dict, out_int16: bool = False,
+                     use_pallas: bool = True, mesh=None):
+        """Dispatch decode_spec_step on every shard of `mesh` (no mesh: one
+        shard, the whole chunk on self.device), each on its device's compute
+        stream (meshlib.sharded_decode_spec_step); the overlap and, for a
+        batch with a Main-profile stream, the predictor state are replaced
+        by the step's.  Takes a batch from _upload_batch over the same mesh,
+        or a parsed one, which it uploads first.  Returns the PCM as
+        meshlib.RowBlocks; finalize_step completes the timing record."""
+        mesh = self._mesh(mesh)
+        if "_shards" not in batch:
+            batch = self._upload_batch(batch, mesh)
+        shards = batch.pop("_shards")
+        facts = {k: batch.pop(k) for k in list(batch) if k.startswith("_")}
+        flags = self._spec_flags(facts, out_int16, use_pallas)
+        t0 = time.perf_counter()
+        pcm = self._run_step(meshlib.sharded_decode_spec_step(flags, mesh),
+                             shards, flags, mesh)
+        self._pend(pcm, t0, facts, self._record_done(mesh.device_set))
         return pcm
 
     def finalize_step(self, pcm) -> np.ndarray:
         """Bring a _device_step result to the host and complete its stats
-        record (device_seconds spans dispatch -> PCM on the host)."""
+        record (device_seconds spans dispatch -> PCM on the host).  Its
+        row blocks land in their rows of one pinned buffer, each on its
+        device's copy stream."""
         pending = self._pending_steps.pop(id(pcm), None)
-        if self._cuda:
-            host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
-            if pending is not None and pending[4] is not None:
-                self._d2h_stream.wait_event(pending[4])
-            else:
-                self._d2h_stream.wait_stream(self._compute_stream)
-            with torch.cuda.stream(self._d2h_stream):
-                host.copy_(pcm, non_blocking=True)
-                pcm.record_stream(self._d2h_stream)
-                ev = torch.cuda.Event()
-                ev.record(self._d2h_stream)
-            ev.synchronize()
-            out = host.numpy()
-        else:
-            out = pcm.numpy()
+        out = self._download_blocks(pcm, pending[4] if pending else {})
         if pending is not None:
             t0, parse_seconds, n_stream_frames, n_channel_frames, _ = pending
             self.stats.add_step(parse_seconds, time.perf_counter() - t0,
                                 n_stream_frames, n_channel_frames)
         return out
+
+    def _download_blocks(self, pcm: meshlib.RowBlocks, done: dict
+                         ) -> np.ndarray:
+        first = pcm.parts[0]
+        shape = (pcm.bounds[-1][1], *first.shape[1:])
+        if not self._cuda:
+            return torch.cat(pcm.parts).numpy()
+        host = torch.empty(shape, dtype=first.dtype, pin_memory=True)
+        events = []
+        for part, (lo, hi), dev in zip(pcm.parts, pcm.bounds, pcm.devices):
+            _, compute, d2h = self._streams(dev)
+            if done.get(dev) is not None:
+                d2h.wait_event(done[dev])
+            else:
+                d2h.wait_stream(compute)
+            with torch.cuda.stream(d2h):
+                host[lo:hi].copy_(part, non_blocking=True)
+                part.record_stream(d2h)
+                ev = torch.cuda.Event()
+                ev.record(d2h)
+            events.append(ev)
+        _wait(events)
+        return host.numpy()
 
     def stream_pcm(self, pcm: np.ndarray, stream_idx: int,
                    n_frames: int) -> np.ndarray:
@@ -660,8 +832,8 @@ class BatchDecoder:
 
         compact=True sends block-scaled int16 spectra (half the H2D bytes);
         compact=False the exact f32 spectra.  materialize=False returns the
-        device tensor for a later finalize_step.  use_pallas=False runs the
-        device step as plain PyTorch."""
+        device PCM (meshlib.RowBlocks) for a later finalize_step.
+        use_pallas=False runs the device step as plain PyTorch."""
         if self._ltp_batch is not None:
             # the carried state lives in the engine; the decoder's own
             # overlap is unused on this route
@@ -685,8 +857,7 @@ class BatchDecoder:
                     st.failed = False
                     st.last_error = ""
             return self._step_python_raw(payloads_per_stream)
-        pcm = self._device_step(self._upload_batch(parsed), out_int16,
-                                use_pallas=use_pallas)
+        pcm = self._device_step(parsed, out_int16, use_pallas=use_pallas)
         return self.finalize_step(pcm) if materialize else pcm
 
     def decode_block(self, buffer_tail: bytes):
@@ -707,12 +878,11 @@ class BatchDecoder:
             st.failed, st.last_error, st.frames_decoded = snap
             return None
         consumed = int(self._last_consumed[0])
-        pcm = self.finalize_step(
-            self._device_step(self._upload_batch(parsed), out_int16=False))
+        pcm = self.finalize_step(self._device_step(parsed))
         return pcm, consumed
 
     def decode_pipelined(self, chunk_iter, out_int16: bool = True,
-                         compact: bool = True):
+                         compact: bool = True, mesh=None):
         """Generator decoding an iterator of payload chunks on the native
         route as a 3-stage pipeline over two parse buffers:
 
@@ -727,14 +897,20 @@ class BatchDecoder:
         on the compute stream.  A reset asked for through request_reset
         while this runs applies at the next chunk boundary, after the step
         in flight has been dispatched.  Yields host PCM arrays [C, T, F] in
-        chunk order."""
+        chunk order.
+
+        With `mesh` (runtime/mesh.py make_mesh) every stage runs sharded:
+        the upload worker lands each shard's slice on its devices and
+        dispatches every shard's step, the download worker brings each
+        shard's PCM into its rows of the output."""
         up_pool = concurrent.futures.ThreadPoolExecutor(1)
         down_pool = concurrent.futures.ThreadPoolExecutor(1)
         up_fut = down_fut = None
         slot = 0
+        mesh = self._mesh(mesh)
 
         def upload_dispatch(batch):
-            return self._device_step(self._upload_batch(batch), out_int16)
+            return self._device_step(batch, out_int16, mesh=mesh)
 
         try:
             self._pipeline_active = True
@@ -846,7 +1022,8 @@ class BatchDecoder:
             self._ps_dense = PP.alloc_ps_dense(self.C, self.T)
         self._ps_enabled = True
 
-    def _ps_mode_begin(self, modes: list, prev_state: dict) -> None:
+    def _ps_mode_begin(self, modes: list, prev_state: meshlib.RowBlocks,
+                       mesh: meshlib.Mesh) -> None:
         """Make sure a device PS state set exists and is fresh for every
         band mode that runs this chunk, then apply the pending row seeds of
         re-adopted slots.  The planes that do not depend on the mode (the
@@ -856,32 +1033,48 @@ class BatchDecoder:
         ran, the left synthesis continues the mono path's v_hist.  A set
         that sat out re-seeds those planes the same way and zeroes the
         rest; the returning slots then overlay their own rows.  Runs on the
-        compute stream."""
-        indep = ("v_l", "v_r", "hist4_r", "hist4_i")
+        mesh's compute streams: prev_state (the SBR state) and the PS state
+        sets are row blocks over the stream shards, and each block begins
+        alone."""
+        rows, devs = prev_state.bounds, prev_state.devices
         for m in modes:
-            other = self._ps_dev_states[not m]
-            src = other if self._ps_fresh[not m] else None
-            st0 = self._ps_dev_states[m]
-            if st0 is None:
-                st0 = PB.ps_state_init(self.C, m, self.device)
-                if src is not None:
-                    for k in indep:
-                        st0[k] = src[k].clone()
-                else:
-                    st0["v_l"] = prev_state["v_hist"].clone()
-            elif not self._ps_fresh[m]:
-                st0 = {k: (src[k].clone() if src is not None and k in indep
-                           else torch.zeros_like(v)) for k, v in st0.items()}
-            for s, rows in self._ps_row_seeds[m].items():
-                for k, row in rows.items():
-                    st0[k][s] = torch.as_tensor(np.asarray(row, np.float32),
-                                                device=self.device)
+            src = self._ps_dev[not m] if self._ps_fresh[not m] else None
+            st = self._sharded(self._ps_dev[m], mesh, rows)
+            src = self._sharded(src, mesh, rows)
+            self._ps_dev[m] = meshlib.RowBlocks(
+                [self._ps_block_begin(
+                    m, None if st is None else st.parts[i],
+                    None if src is None else src.parts[i],
+                    prev_state.parts[i], lo, hi, devs[i])
+                 for i, (lo, hi) in enumerate(rows)], rows, devs)
             self._ps_row_seeds[m] = {}
-            self._ps_dev_states[m] = st0
             self._ps_fresh[m] = True
         for m in (False, True):
             if m not in modes:
                 self._ps_fresh[m] = False
+
+    def _ps_block_begin(self, m: bool, st0, src, prev_state: dict, lo: int,
+                        hi: int, dev) -> dict:
+        """_ps_mode_begin for band mode m on the rows [lo, hi) held on
+        `dev`: st0 their state of mode m (None before first use), src that
+        of the other mode when fresh, prev_state their SBR state."""
+        indep = ("v_l", "v_r", "hist4_r", "hist4_i")
+        if st0 is None:
+            st0 = PB.ps_state_init(hi - lo, m, dev)
+            if src is not None:
+                for k in indep:
+                    st0[k] = src[k].clone()
+            else:
+                st0["v_l"] = prev_state["v_hist"].clone()
+        elif not self._ps_fresh[m]:
+            st0 = {k: (src[k].clone() if src is not None and k in indep
+                       else torch.zeros_like(v)) for k, v in st0.items()}
+        for s, rows in self._ps_row_seeds[m].items():
+            if lo <= s < hi:
+                for k, row in rows.items():
+                    st0[k][s - lo] = torch.as_tensor(
+                        np.asarray(row, np.float32), device=dev)
+        return st0
 
     def _sbr_chunk_begin(self, payloads_per_stream) -> None:
         """Per-chunk bookkeeping for the float64 replay: frame counts per
@@ -985,14 +1178,17 @@ class BatchDecoder:
         self._slot_sbr_hdr[s] = None
         self._sbr_cfg_snap = None
 
-    def _cfg_planes_device(self, snap: dict) -> dict:
-        """The cfg planes `snap` on the device, kept until the planes
-        change: steady chunks copy no cfg bytes."""
-        if self._sbr_cfg_dev is None or self._sbr_cfg_dev[0] is not snap:
-            with self._on_compute():
-                dev = {k: torch.from_numpy(v).to(self.device)
-                       for k, v in snap.items()}
-            self._sbr_cfg_dev = (snap, dev)
+    def _cfg_planes_device(self, snap: dict, mesh: meshlib.Mesh,
+                           rows: tuple) -> list:
+        """The cfg planes `snap` on the devices, kept until the planes or
+        the mesh change: steady chunks copy no cfg bytes.  The list of the
+        stream shards' rows of them, each on its shard's device."""
+        key = (snap, mesh, rows)
+        if (self._sbr_cfg_dev is None
+                or any(a is not b for a, b in zip(self._sbr_cfg_dev[0], key))):
+            with self._on_mesh(mesh):
+                dev = meshlib.shard_stream_tree(mesh, snap, rows)
+            self._sbr_cfg_dev = (key, dev)
         return self._sbr_cfg_dev[1]
 
     def _he_ctx(self, buf_slot: int) -> dict:
@@ -1046,31 +1242,47 @@ class BatchDecoder:
             return {k: torch.from_numpy(np.ascontiguousarray(v))
                     for k, v in planes.items()}
         self._ps_buffers()
-        ev = self._ps_h2d_done[buf_slot]
-        if ev is not None:
-            ev.synchronize()   # the last copy out of these buffers landed
+        _wait(self._ps_h2d_done[buf_slot])   # the last copies out landed
         bufs = self._ps_bufs[buf_slot]
         for k, v in planes.items():
             np.copyto(bufs[k].numpy(), v, casting="unsafe")
         return {k: bufs[k] for k in planes}
 
-    def _upload_ps(self, ctx: dict) -> dict:
-        """Copy the staged PS planes to the device on the copy stream; the
-        compute stream, and the next staging into the same buffers, wait
-        for it."""
-        planes = ctx["ps_planes"]
+    def _upload_tree(self, planes: dict, mesh: meshlib.Mesh, rows: tuple,
+                     done: list, buf_slot: int) -> list:
+        """Each stream shard's rows of `planes` (meshlib.
+        stream_tree_shardings) copied to its device on that device's copy
+        stream, which its compute stream waits for; done[buf_slot] keeps
+        the copies' events for the next staging into the same buffers."""
+        host = meshlib.stream_tree_shardings(mesh, planes, rows)
         if not self._cuda:
-            return planes
-        with torch.cuda.stream(self._h2d_stream):
-            dev = {k: v.to(self.device, non_blocking=True)
-                   for k, v in planes.items()}
-            ev = torch.cuda.Event()
-            ev.record(self._h2d_stream)
-        self._ps_h2d_done[ctx["slot"]] = ev
-        self._compute_stream.wait_event(ev)
-        for v in dev.values():
-            v.record_stream(self._compute_stream)
-        return dev
+            return host
+        out, events = [], []
+        for part, dev in zip(host, mesh.row_devices):
+            h2d, compute, _ = self._streams(dev)
+            with torch.cuda.stream(h2d):
+                d = {k: _pinned(v).to(dev, non_blocking=True)
+                     for k, v in part.items()}
+                ev = torch.cuda.Event()
+                ev.record(h2d)
+            compute.wait_event(ev)
+            for v in d.values():
+                v.record_stream(compute)
+            events.append(ev)
+            out.append(d)
+        done[buf_slot] = events
+        return out
+
+    def _sbr_upload(self, dense: dict, ctx: dict, mesh: meshlib.Mesh):
+        """The chunk's SBR planes and, with PS, its PS planes on the stream
+        shards (_upload_tree): (SBR planes, PS planes or None)."""
+        rows = self._layout(mesh).rows
+        planes = self._upload_tree(dense, mesh, rows, self._sbr_h2d_done,
+                                   ctx["slot"])
+        ps = (self._upload_tree(ctx["ps_planes"], mesh, rows,
+                                self._ps_h2d_done, ctx["slot"])
+              if ctx["ps_enabled"] else None)
+        return planes, ps
 
     def _stage_dense(self, dense, compact: bool, buf_slot: int) -> dict:
         """The SBR planes as host tensors for the copy to the device:
@@ -1082,29 +1294,11 @@ class BatchDecoder:
         if not self._cuda:
             return {k: torch.from_numpy(v) for k, v in planes.items()}
         self._he_buffers()
-        ev = self._sbr_h2d_done[buf_slot]
-        if ev is not None:
-            ev.synchronize()   # the last copy out of these buffers landed
+        _wait(self._sbr_h2d_done[buf_slot])   # the last copies out landed
         bufs = self._sbr_bufs[buf_slot]
         for k, v in planes.items():
             np.copyto(bufs[k].numpy(), v)
         return bufs
-
-    def _upload_dense(self, dense: dict, buf_slot: int) -> dict:
-        """Copy the SBR planes to the device on the copy stream; the compute
-        stream, and the next staging into the same buffers, wait for it."""
-        if not self._cuda:
-            return dense
-        with torch.cuda.stream(self._h2d_stream):
-            dev = {k: v.to(self.device, non_blocking=True)
-                   for k, v in dense.items()}
-            ev = torch.cuda.Event()
-            ev.record(self._h2d_stream)
-        self._sbr_h2d_done[buf_slot] = ev
-        self._compute_stream.wait_event(ev)
-        for v in dev.values():
-            v.record_stream(self._compute_stream)
-        return dev
 
     def _he_host_phase(self, payloads_per_stream, compact: bool = True,
                        buf_slot: int = 0):
@@ -1156,68 +1350,74 @@ class BatchDecoder:
         return (parsed, self._stage_dense(dense, compact, buf_slot),
                 self._he_ctx(buf_slot))
 
-    def _sbr_dispatch(self, core_pcm, dense: dict, ctx: dict,
-                      out_int16: bool = False):
-        """Device half of the SBR stage: copy the planes up and run the
-        batched SBR program, or the SBR + PS program when the chunk carries
-        PS, on the device-resident core PCM, on the compute stream.  Slots
+    def _sbr_dispatch(self, core_pcm: meshlib.RowBlocks, dev_dense: list,
+                      ps_dense: list | None, ctx: dict, out_int16: bool,
+                      mesh: meshlib.Mesh):
+        """Device half of the SBR stage: on the core PCM, row blocks on the
+        stream shards' first devices, each shard runs the batched SBR
+        program, or the SBR + PS program when the chunk carries PS, on its
+        own rows there (its rows of the planes from _sbr_upload, of the cfg
+        planes and of the state), on that device's compute stream.  Slots
         that turn sticky this chunk first get host copies of their state
         rows as they stand before the step (their float64 replay continues
         from them; a PS slot's from its PS state too).  Returns (device PCM
-        [C, T, 2F], seeds) for _sbr_download; int16 PCM when out_int16 and
-        no slot is sticky."""
+        [C, T, 2F] as row blocks, seeds) for _sbr_download; int16 PCM when
+        out_int16 and no slot is sticky."""
+        rows, devs = core_pcm.bounds, core_pcm.devices
         sticky = ctx["sticky"]
-        prev = self._sbr_dev_state
+        prev = self._sharded(self._sbr_dev, mesh, rows)
         fresh = [s for s in sticky if self._sbr_np_procs[s] is None]
-        with self._on_compute():
-            seeds = {s: tuple(prev[k][s].cpu().numpy().astype(np.float64)
-                              for k in _SEED_KEYS) for s in fresh}
-            for s in fresh if ctx["ps_enabled"] else ():
-                m = ctx["ps_slot_modes"][s]
-                pdev = self._ps_dev_states[bool(m)] if m is not None else None
+        seeds = {}
+        with self._on_mesh(mesh):
+            for s in fresh:
+                row = meshlib.row_of(prev, s)
+                seeds[s] = tuple(row[k].cpu().numpy().astype(np.float64)
+                                 for k in _SEED_KEYS)
+                m = ctx["ps_slot_modes"][s] if ctx["ps_enabled"] else None
+                pdev = self._ps_dev[bool(m)] if m is not None else None
                 if (ctx["ps_pair"][s] >= 0 and pdev is not None
                         and self._ps_np[s] is None):
+                    prow = meshlib.row_of(pdev, s)
                     seeds[("ps", s)] = {
-                        k: pdev[k][s].cpu().numpy().astype(np.float64)
+                        k: prow[k].cpu().numpy().astype(np.float64)
                         for k in _PS_SEED_KEYS}
-        dev_dense = self._upload_dense(dense, ctx["slot"])
-        cfg = self._cfg_planes_device(ctx["cfg"])
+        cfg = self._cfg_planes_device(ctx["cfg"], mesh, rows)
         i16 = out_int16 and not sticky
-        done = None
-        if ctx["ps_enabled"]:
-            modes = ctx["ps_modes"] or [False]
-            ps_dense = self._upload_ps(ctx)
-        with self._on_compute():
+        modes = (ctx["ps_modes"] or [False]) if ctx["ps_enabled"] else []
+        with self._on_mesh(mesh):
             if not ctx["ps_enabled"]:
-                pcm2, state = SB.sbr_apply(core_pcm, dev_dense, prev, cfg, i16)
+                pcm2, state = meshlib.sharded_sbr_apply(mesh, i16)(
+                    core_pcm, dev_dense, prev, cfg)
             elif len(modes) == 2:
-                self._ps_mode_begin(modes, prev)
-                pcm2, state, *sets = PB.sbr_ps_apply_dual(
-                    core_pcm, dev_dense, ps_dense, prev,
-                    self._ps_dev_states[False], self._ps_dev_states[True],
-                    cfg, i16)
-                self._ps_dev_states = dict(zip((False, True), sets))
+                self._ps_mode_begin(modes, prev, mesh)
+                pcm2, state, s20, s34 = meshlib.sharded_sbr_ps_apply_dual(
+                    mesh, i16)(core_pcm, dev_dense, ps_dense, prev,
+                               self._ps_dev[False], self._ps_dev[True], cfg)
+                self._ps_dev = {False: s20, True: s34}
             else:
-                self._ps_mode_begin(modes, prev)
+                self._ps_mode_begin(modes, prev, mesh)
                 m = modes[0]
-                pcm2, state, self._ps_dev_states[m] = PB.sbr_ps_apply(
-                    core_pcm, dev_dense, ps_dense, prev,
-                    self._ps_dev_states[m], cfg, i16, m)
+                pcm2, state, self._ps_dev[m] = meshlib.sharded_sbr_ps_apply(
+                    mesh, i16, m)(core_pcm, dev_dense, ps_dense, prev,
+                                  self._ps_dev[m], cfg)
             # contiguous: the state outlives the chunk's large intermediates
-            self._sbr_dev_state = {k: v.contiguous() for k, v in state.items()}
-            if self._cuda:
-                done = torch.cuda.Event()
-                done.record(self._compute_stream)
+            state.parts = [{k: v.contiguous() for k, v in part.items()}
+                           for part in state.parts]
+            self._sbr_dev = state
+            done = self._record_done(devs)
         # the core step's stats record now completes with the SBR output
         pending = self._pending_steps.pop(id(core_pcm), None)
         if pending is not None:
             self._pending_steps[id(pcm2)] = pending[:4] + (done,)
         return pcm2, seeds
 
-    def _sbr_stage(self, core_pcm, dense: dict, ctx: dict,
-                   out_int16: bool = False) -> np.ndarray:
-        """Dispatch and download of the SBR stage in one call."""
-        pcm2, seeds = self._sbr_dispatch(core_pcm, dense, ctx, out_int16)
+    def _sbr_stage(self, core_pcm: meshlib.RowBlocks, dense: dict, ctx: dict,
+                   out_int16: bool = False, mesh=None) -> np.ndarray:
+        """Upload, dispatch and download of the SBR stage in one call."""
+        mesh = self._mesh(mesh)
+        pcm2, seeds = self._sbr_dispatch(
+            core_pcm, *self._sbr_upload(dense, ctx, mesh), ctx, out_int16,
+            mesh)
         return self._sbr_download(pcm2, seeds, ctx, core_pcm)
 
     def _sbr_download(self, pcm2, seeds: dict, ctx: dict,
@@ -1231,7 +1431,7 @@ class BatchDecoder:
         if not sticky:
             return out
         # finalize_step waited for the SBR step, which followed the core's
-        core_np = core_pcm.cpu().numpy()
+        core_np = meshlib.gather(core_pcm, torch.device("cpu")).cpu().numpy()
         from aacjax_torch.host.ps_decode import apply_ps
         for slot in sticky:
             proc = self._sbr_np_procs[slot]
@@ -1416,8 +1616,8 @@ class BatchDecoder:
         self._ps_np[s] = None
 
     def step_he_raw(self, payloads_per_stream: list[list[bytes] | None],
-                    compact: bool = True,
-                    out_int16: bool = False) -> np.ndarray:
+                    compact: bool = True, out_int16: bool = False,
+                    mesh=None) -> np.ndarray:
         """Decode one chunk of HE-AAC streams: the core as step_raw does it
         (native parse when built: the C walker records where each frame's
         SBR extension sits, so Python parses only those), then the batched
@@ -1428,15 +1628,19 @@ class BatchDecoder:
         SBR headers are per-slot data, so any mix of headers decodes in the
         one program; a mid-chunk header change replays that slot's chunk on
         the float64 path and re-adopts at the next boundary.  compact: see
-        _he_host_phase (the python route ignores it)."""
+        _he_host_phase (the python route ignores it).
+
+        With `mesh` the core step runs sharded (on a mesh with a frame
+        axis, each row's frame shards are gathered on its first device),
+        then each stream shard's SBR or SBR + PS program on its rows."""
         # a chunk boundary with nothing in flight: re-adopt sticky slots
         self._readopt_sticky()
+        mesh = self._mesh(mesh)
         if self.use_native:
             parsed, dense, ctx = self._he_host_phase(payloads_per_stream,
                                                      compact)
-            core_pcm = self._device_step(self._upload_batch(parsed),
-                                         out_int16=False)
-            return self._sbr_stage(core_pcm, dense, ctx, out_int16)
+            core_pcm = self._device_step(parsed, mesh=mesh)
+            return self._sbr_stage(core_pcm, dense, ctx, out_int16, mesh)
 
         self._sbr_init()
         self._sbr_chunk_begin(payloads_per_stream)
@@ -1463,11 +1667,7 @@ class BatchDecoder:
                 limits.append(st.n_slots)
         batch, flags = pack_frames(per_slot, self.C, self.T, limits,
                                    frame_len=self.F, eld=self._eld)
-        flags = dataclasses.replace(flags, use_pallas=True)
-        with self._on_compute():
-            dev = {k: self._to_device(k, v) for k, v in batch.items()}
-            core_pcm, self.overlap = P.decode_step(dev, self.overlap,
-                                                   flags)[:2]
+        core_pcm = self._packed_step(batch, flags, mesh)
         for st, frames in zip(self.streams, frames_per_stream):
             for t, frame in enumerate(frames or []):
                 slot = st.base_slot
@@ -1478,10 +1678,10 @@ class BatchDecoder:
                         self._sbr_pack_payload(dense, sf, slot, nch, t)
                     slot += nch
         return self._sbr_stage(core_pcm, self._stage_dense(dense, False, 0),
-                               self._he_ctx(0), out_int16)
+                               self._he_ctx(0), out_int16, mesh)
 
     def decode_he_pipelined(self, chunk_iter, out_int16: bool = True,
-                            compact: bool = True):
+                            compact: bool = True, mesh=None):
         """Generator decoding an iterator of HE-AAC payload chunks on the
         native route as a 3-stage pipeline, the HE counterpart of
         decode_pipelined:
@@ -1497,7 +1697,8 @@ class BatchDecoder:
         stream, ordered by events.  Each chunk's SBR bookkeeping is captured
         into its own context, so the stages share no mutable chunk state.
         Deferred resets and sticky re-adoption happen at a drained chunk
-        boundary.  Yields host PCM arrays [C, T, 2F] in chunk order."""
+        boundary.  Yields host PCM arrays [C, T, 2F] in chunk order.  With
+        `mesh`, the device half runs as step_he_raw(mesh=) runs it."""
         if not self.use_native:
             raise RuntimeError("decode_he_pipelined requires the native "
                                "parser (use step_he_raw)")
@@ -1505,12 +1706,14 @@ class BatchDecoder:
         down_pool = concurrent.futures.ThreadPoolExecutor(1)
         up_fut = down_fut = None
         slot = 0
+        mesh = self._mesh(mesh)
 
         def upload_dispatch(host):
             parsed, dense, ctx = host
-            core_pcm = self._device_step(self._upload_batch(parsed),
-                                         out_int16=False)
-            pcm2, seeds = self._sbr_dispatch(core_pcm, dense, ctx, out_int16)
+            core_pcm = self._device_step(parsed, mesh=mesh)
+            pcm2, seeds = self._sbr_dispatch(
+                core_pcm, *self._sbr_upload(dense, ctx, mesh), ctx,
+                out_int16, mesh)
             return pcm2, seeds, ctx, core_pcm
 
         def download(args):
@@ -1619,17 +1822,18 @@ class BatchDecoder:
         st.frames_decoded = 0
         lo, hi = st.base_slot, st.base_slot + st.n_slots
         self.prev_shapes[lo:hi] = 0
-        with self._on_compute():
-            self.overlap[lo:hi] = 0.0
-            if self._pred_state is not None:
-                self._pred_state[lo:hi] = pred.pred_state_init(
-                    st.n_slots, self.device)
+        # the state's rows are zeroed where they lie, whole or in row blocks
+        with self._on_devices(self._dev_streams):
+            for part, a, b in meshlib.blocks(self._ov, lo, hi):
+                part[a:b] = 0.0
+            for part, a, b in meshlib.blocks(self._pred, lo, hi):
+                if part is not None:
+                    part[a:b] = pred.pred_state_init(b - a, part.device)
             if hasattr(self, "_sbr_ctxs"):
-                for v in self._sbr_dev_state.values():
-                    v[lo:hi] = 0.0
-                for d in self._ps_dev_states.values():
-                    for v in (d or {}).values():
-                        v[lo:hi] = 0.0
+                for d in (self._sbr_dev, *self._ps_dev.values()):
+                    for part, a, b in meshlib.blocks(d, lo, hi):
+                        for v in (part or {}).values():
+                            v[a:b] = 0.0
         if hasattr(self, "_sbr_ctxs"):
             self._sbr_ctxs[idx] = sbrmod.SBRContext(
                 sample_rate=2 * st.config.sample_rate)
@@ -1761,3 +1965,18 @@ class BatchDecoder:
                         self.device) for k, v in d.items()}
         self._ps_dense = (PP.alloc_ps_dense(self.C, self.T)
                           if self._ps_enabled else None)
+
+
+def _wait(events) -> None:
+    """Wait on the host for an event or a list of them (None: nothing)."""
+    for ev in (events if isinstance(events, list) else [events]):
+        if ev is not None:
+            ev.synchronize()
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """t in contiguous pinned host memory (itself when it already is), so
+    that a copy to the device can run asynchronously."""
+    if t.is_contiguous() and t.is_pinned():
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)

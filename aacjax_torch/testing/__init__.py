@@ -710,11 +710,12 @@ def sbr_apply_inputs(n_streams: int, T: int, device, compact: bool = False):
     import torch
 
     from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime import mesh as meshlib
     from aacjax_torch.runtime.batch import BatchDecoder
     config, chunk = he_chunk(n_streams, T)
     dec = BatchDecoder([config] * n_streams, chunk_frames=T, device=device)
     parsed, dense, ctx = dec._he_host_phase(chunk, compact=compact)
-    core = dec._device_step(dec._upload_batch(parsed), out_int16=False)
+    core = meshlib.gather(dec._device_step(parsed), dec.device)
     dev = torch.device(device)
     planes = {k: v.to(dev) for k, v in dense.items()}
     cfg = {k: torch.from_numpy(v).to(dev) for k, v in ctx["cfg"].items()}
@@ -847,13 +848,14 @@ def sbr_ps_apply_inputs(n_streams: int, T: int, device):
 
     from aacjax_torch.kernels import ps_batch as PB
     from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime import mesh as meshlib
     from aacjax_torch.runtime.batch import BatchDecoder
     config, corpus = ps_serving_corpus(2, 1.0, T)
     chunk = [corpus[i % len(corpus)][:T] for i in range(n_streams)]
     dec = BatchDecoder([config] * n_streams, chunk_frames=T, cce_slots=1,
                        device=device)
     parsed, dense, ctx = dec._he_host_phase(chunk, compact=True)
-    core = dec._device_step(dec._upload_batch(parsed), out_int16=False)
+    core = meshlib.gather(dec._device_step(parsed), dec.device)
     dev = torch.device(device)
     planes = {k: v.to(dev) for k, v in dense.items()}
     ps = {k: v.to(dev) for k, v in ctx["ps_planes"].items()}

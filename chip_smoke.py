@@ -91,12 +91,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      device programs' time, launches, costliest ops and peak memory; then
      every stream decoded on the card through decode_pipelined (the tail
      kernel), its SNR against its source held to 32 of the streams encoded
-     and decoded on the CPU route (within 0.5 dB).
+     and decoded on the CPU route (within 0.5 dB);
+  9. the mesh (aacjax_torch/runtime/mesh.py), 4 shards on distinct cards
+     where the machine has them, else virtual shards of one card: LC-512 on
+     a 4x1 mesh through decode_pipelined(mesh=), every chunk bit-equal to
+     the unsharded card run, with its tail launches and realtime_x beside
+     the unsharded run's; LC-512 on 2x2 (the frame axis) within 1 LSB on
+     < 2% of samples, the carry after each of three chunks within 3e-3;
+     Main-512 on 2x2 (the predictor's state handed over frame shards, TNS
+     per shard) within 5e-5 * max|ref|; HE-512 and PS-512 on 4x1, 2 chunks,
+     f32 within 1e-5 * max(1, max|ref|) and int16 within the HE bound, one
+     decorrelator launch a shard a chunk; ENC-512 on 4x1, 2 chunks, the
+     share of frames byte-identical and each stream's SNR within 0.5 dB of
+     the unsharded run's; graft_entry.dryrun_multichip(4).  Its launches
+     count into the kernels line.
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import pathlib
@@ -771,12 +785,35 @@ def serving_pass(torch, name: str, config, corpus, windows: int,
     return counts
 
 
+@functools.lru_cache(maxsize=None)
+def lc_corpus():
+    """LC-512's corpus (make_corpus(4, 4.0)), made once for the phases that
+    decode it."""
+    from aacjax_torch.testing import make_corpus
+    return make_corpus(4, 4.0)
+
+
+@functools.lru_cache(maxsize=None)
+def he_corpus(ps: bool):
+    """HE-512's or PS-512's corpus, made once for the phases that decode
+    it."""
+    from aacjax_torch.testing import he_serving_corpus, ps_serving_corpus
+    return (ps_serving_corpus if ps else he_serving_corpus)(4, 4.0, HE_CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def main_corpus():
+    """Main-512's corpus (main_serving_corpus(4, 48)), made once."""
+    from aacjax_torch.testing import main_serving_corpus
+    return main_serving_corpus(4, 48)
+
+
 def phase_slice(torch) -> dict:
     """The LC-512 pass: the reference's headline corpus (no TNS, long
     windows), int16 PCM."""
-    from aacjax_torch.testing import adts_payloads, make_corpus
+    from aacjax_torch.testing import adts_payloads
     t0 = time.perf_counter()
-    config, streams = make_corpus(4, 4.0)
+    config, streams = lc_corpus()
     say(f"slice: corpus of 4 unique streams x 4 s encoded in "
         f"{time.perf_counter() - t0:.1f} s")
     say(f"slice: host has {os.cpu_count()} online cores, "
@@ -813,9 +850,8 @@ def phase_slice_main(torch) -> dict:
     kernel, the TNS kernel, the synthesis kernel at B = C*T = 16384 and the
     plain overlap-add.  Exact f32 spectra travel (the predictor is sensitive
     to the last bit); f32 PCM for the reason given for LC-512-tns."""
-    from aacjax_torch.testing import main_serving_corpus
     t0 = time.perf_counter()
-    config, corpus = main_serving_corpus(4, 48)
+    config, corpus = main_corpus()
     say(f"slice-main: corpus of {len(corpus)} unique Main-profile streams "
         f"of random frames written in {time.perf_counter() - t0:.1f} s")
     return serving_pass(torch, "slice-main", config, corpus, MAIN_WINDOWS,
@@ -1175,20 +1211,24 @@ def he_stage_split(torch, dec, chunk, runs: int = 3):
         p0 = time.perf_counter()
         parsed, dense, ctx = dec._he_host_phase(chunk, True)
         parse_s = time.perf_counter() - p0
+        home, rows = dec._home, ((0, dec.C),)
         ev[0].record(dec._h2d_stream)
         up = dec._upload_batch(parsed)
         ev[1].record(dec._h2d_stream)
         ev[2].record(dec._h2d_stream)
-        dev_dense = dec._upload_dense(dense, ctx["slot"])
+        dev_dense = dec._upload_tree(dense, home, rows, dec._sbr_h2d_done,
+                                     ctx["slot"])
         ev[3].record(dec._h2d_stream)
         ev[4].record(dec._h2d_stream)
-        if ctx["ps_enabled"]:
-            ctx["ps_planes"] = dec._upload_ps(ctx)
+        ps_dense = (dec._upload_tree(ctx["ps_planes"], home, rows,
+                                     dec._ps_h2d_done, ctx["slot"])
+                    if ctx["ps_enabled"] else None)
         ev[5].record(dec._h2d_stream)
         ev[6].record(dec._compute_stream)
         core = dec._device_step(up, out_int16=False)
         ev[7].record(dec._compute_stream)
-        pcm2, seeds = dec._sbr_dispatch(core, dev_dense, ctx, True)
+        pcm2, seeds = dec._sbr_dispatch(core, dev_dense, ps_dense, ctx, True,
+                                        home)
         ev[8].record(dec._compute_stream)
         torch.cuda.synchronize()
         ev[9].record(dec._d2h_stream)
@@ -1236,6 +1276,7 @@ def he_serving(torch, name: str, config, corpus, ps: bool) -> dict:
     chunk's stage split and a profile of one host phase.  With `ps`, mono
     HE-AAC v2 streams with a spare slot each (cce_slots=1)."""
     import aacjax_torch
+    from aacjax_torch.runtime import mesh as meshlib
     from aacjax_torch.testing import assert_pcm_close
     per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
     n_chunks = min(len(corpus[0]) // HE_CHUNK, HE_MAX_CHUNKS)
@@ -1284,8 +1325,8 @@ def he_serving(torch, name: str, config, corpus, ps: bool) -> dict:
                                     out_int16=False, use_pallas=False)
         torch.cuda.synchronize()
         core_err = max(core_err, assert_pcm_close(
-            core_k.cpu().numpy(), core_p.cpu().numpy(), False,
-            f"{name} core chunk {k}"))
+            *(meshlib.gather(c, "cpu").numpy() for c in (core_k, core_p)),
+            False, f"{name} core chunk {k}"))
         out_k = ver._sbr_stage(core_k, dense, ctx, out_int16=True).copy()
         out_p = plain._sbr_stage(core_p, dense, ctx, out_int16=True).copy()
         torch.cuda.synchronize()
@@ -1338,9 +1379,8 @@ def phase_he_serving(torch) -> dict:
     """HE-512: 512 HE-AAC v1 stereo streams (C = 1024 slots; 22.05 kHz core,
     44.1 kHz out) from he_serving_corpus(4, 4.0, 8), bench_he's
     construction (he_serving)."""
-    from aacjax_torch.testing import he_serving_corpus
     t0 = time.perf_counter()
-    config, corpus = he_serving_corpus(4, 4.0, HE_CHUNK)
+    config, corpus = he_corpus(False)
     say(f"he-512: corpus of {len(corpus)} unique HE-AAC v1 stereo streams x "
         f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
     return he_serving(torch, "he-512", config, corpus, ps=False)
@@ -1351,9 +1391,8 @@ def phase_ps_serving(torch) -> dict:
     bench_he(ps=True)'s construction, decoded as stereo with a spare slot
     each (cce_slots=1: C = 1024 slots, 512 sources and 512 pairs): one tail
     and one decorrelator launch a chunk (he_serving)."""
-    from aacjax_torch.testing import ps_serving_corpus
     t0 = time.perf_counter()
-    config, corpus = ps_serving_corpus(4, 4.0, HE_CHUNK)
+    config, corpus = he_corpus(True)
     say(f"ps-512: corpus of {len(corpus)} unique HE-AAC v2 mono streams x "
         f"{len(corpus[0])} frames encoded in {time.perf_counter() - t0:.1f} s")
     return he_serving(torch, "ps-512", config, corpus, ps=True)
@@ -1746,7 +1785,7 @@ def enc_snrs(dec, outs, pcm, streams) -> list[float]:
     snrs = []
     for s in streams:
         out = np.concatenate([dec.stream_pcm(o, s, ENC_CHUNK) for o in outs])
-        ref = pcm[s, L:ENC_CHUNKS * L - 1024].astype(np.float64)
+        ref = pcm[s, L:len(outs) * L - 1024].astype(np.float64)
         got = out[L + 1024:] * 32768.0
         snrs.append(float(10 * np.log10(np.sum(ref ** 2)
                                         / np.sum((got - ref) ** 2))))
@@ -1862,6 +1901,260 @@ def phase_encode_serving(torch) -> dict:
     return counts
 
 
+# -- phase 9: the mesh --------------------------------------------------------
+MESH_SHARDS = 4      # shards of the mesh runs: 4x1 and 2x2
+MESH_CHUNKS = 2      # chunks of the HE, PS and encoder mesh runs
+MESH_HE_TOL = 1e-5   # the reference's dry-run bar, * max(1, max|ref|)
+
+
+def mesh_devices(torch, n: int) -> list:
+    """n distinct cards where the machine has them, else n virtual shards
+    of cuda:0."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def mesh_serving_chunks(corpus, n_chunks: int, frames: int):
+    per_stream = [corpus[i % len(corpus)] for i in range(N_STREAMS)]
+    n = min(n_chunks, min(len(p) for p in per_stream) // frames)
+    return [[p[k * frames:(k + 1) * frames] for p in per_stream]
+            for k in range(n)]
+
+
+def mesh_decode(torch, name: str, config, chunks, mesh, out_int16: bool,
+                he: bool = False, ps: bool = False):
+    """One pipelined run of `chunks` on a fresh decoder, with `mesh` (None:
+    unsharded); the launch counts set to 0 just before it and read just
+    after.  Returns (outputs, wall seconds, counts)."""
+    import aacjax_torch
+    dec = aacjax_torch.BatchDecoder(
+        [config] * N_STREAMS, chunk_frames=len(chunks[0][0]),
+        cce_slots=1 if ps else 0)
+    run = dec.decode_he_pipelined if he else dec.decode_pipelined
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [o.copy() for o in run(iter(chunks), out_int16=out_int16,
+                                  mesh=mesh)]
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(len(outs) == len(chunks), f"{name}: chunks lost")
+    check(not any(st.failed for st in dec.streams), f"{name}: a stream "
+          f"failed: {[st.last_error for st in dec.streams if st.failed][:1]}")
+    return outs, wall, counts
+
+
+def mesh_lc(torch, devs) -> dict:
+    """LC-512 (512 stereo streams, C = 1024, chunk_frames=16, int16 PCM) on
+    a 4x1 mesh, 256 slots a shard: every chunk bit-equal to the unsharded
+    card run, one tail launch a shard a chunk, realtime_x beside the
+    unsharded run's; then on a 2x2 mesh (the frame axis, 8 frames a shard
+    and a halo frame): every chunk within 1 LSB on < 2% of samples, and the
+    carry after each of three chunks, stepped, within 3e-3 of the unsharded
+    decoder's."""
+    import aacjax_torch
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.testing import adts_payloads, assert_pcm_close
+    config, streams = lc_corpus()
+    chunks = mesh_serving_chunks([adts_payloads(d) for d in streams], 99,
+                                 CHUNK)
+    n = len(chunks)
+    audio_s = N_STREAMS * n * CHUNK * 1024 / config.sample_rate
+    m41 = meshlib.make_mesh(4, 1, devices=devs)
+    m22 = meshlib.make_mesh(2, 2, devices=devs)
+    for mesh in (m41, m22):      # warm-up chunk: the shards' streams
+        mesh_decode(torch, "mesh warm-up", config, chunks[:1], mesh, True)
+    ref, ref_wall, _ = mesh_decode(torch, "lc-512", config, chunks, None,
+                                   True)
+    got, wall, c41 = mesh_decode(torch, "lc-512 4x1", config, chunks, m41,
+                                 True)
+    check(c41["tail"] == 4 * n, f"lc-512 4x1: launches {c41}, expected "
+          f"{4 * n} tail launches")
+    for k in range(n):
+        check(np.array_equal(got[k], ref[k]), f"lc-512 4x1: chunk {k} "
+              "differs from the unsharded card run")
+    say(f"mesh lc-512 4x1: all {n} chunks bit-equal to the unsharded card "
+        f"run; launches {c41}; realtime_x {audio_s / wall:.1f} sharded, "
+        f"{audio_s / ref_wall:.1f} unsharded (walls {wall:.3f} s and "
+        f"{ref_wall:.3f} s for {audio_s:.1f} s of audio)")
+    got, wall, c22 = mesh_decode(torch, "lc-512 2x2", config, chunks, m22,
+                                 True)
+    check(c22["tail"] == 4 * n, f"lc-512 2x2: launches {c22}")
+    same = 0
+    for k in range(n):
+        assert_pcm_close(got[k], ref[k], True, f"lc-512 2x2 chunk {k}")
+        same += int(np.array_equal(got[k], ref[k]))
+    a = aacjax_torch.BatchDecoder([config] * N_STREAMS, chunk_frames=CHUNK)
+    b = aacjax_torch.BatchDecoder([config] * N_STREAMS, chunk_frames=CHUNK)
+    carry = 0.0
+    for k in range(min(3, n)):
+        a.step_raw(chunks[k], out_int16=True)
+        b.finalize_step(b._device_step(
+            b._parse_native(chunks[k], compact=True), True, mesh=m22))
+        carry = max(carry, float((a.overlap - b.overlap).abs().max()))
+        check(carry <= 3e-3, f"lc-512 2x2: the carry after chunk {k} is "
+              f"{carry} from the unsharded decoder's")
+    say(f"mesh lc-512 2x2: {same} of {n} chunks bit-equal to the unsharded "
+        f"card run, all within 1 LSB on < 2% of samples; the carry after "
+        f"each of {min(3, n)} chunks within {carry} of the unsharded "
+        f"decoder's; launches {c22}; realtime_x {audio_s / wall:.1f}")
+    return add_counts(dict(c41), c22)
+
+
+def mesh_main(torch, devs) -> dict:
+    """Main-512 on a 2x2 mesh: the predictor's state handed from frame
+    shard to frame shard, TNS and the synthesis kernel per shard; f32 PCM
+    of every chunk within 5e-5 * max|ref| of the unsharded card run."""
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.testing import assert_pcm_close
+    config, corpus = main_corpus()
+    chunks = mesh_serving_chunks(corpus, 3, CHUNK)
+    m22 = meshlib.make_mesh(2, 2, devices=devs)
+    ref, _, _ = mesh_decode(torch, "main-512", config, chunks, None, False)
+    got, wall, counts = mesh_decode(torch, "main-512 2x2", config, chunks,
+                                    m22, False)
+    n = len(chunks)
+    check(counts["pred"] == 4 * n and counts["synthesis"] == 4 * n
+          and counts["tail"] == 0, f"main-512 2x2: launches {counts}")
+    worst = max(assert_pcm_close(g, r, False, f"main-512 2x2 chunk {k}")
+                / max(1.0, float(np.abs(r).max()))
+                for k, (g, r) in enumerate(zip(got, ref)))
+    say(f"mesh main-512 2x2: all {n} chunks within 5e-5 * max|ref| of the "
+        f"unsharded card run (max {worst:.3g} * max|ref|); launches {counts}")
+    return counts
+
+
+def mesh_he(torch, devs, ps: bool) -> dict:
+    """HE-512 or PS-512 on a 4x1 mesh, MESH_CHUNKS chunks, one run each in
+    f32 and in int16 after a warm-up chunk on each side: the f32 PCM within
+    MESH_HE_TOL * max(1, max|ref|) of the unsharded card run, the int16 PCM
+    within HE_I16_ONSET / HE_I16_STEADY of it; one tail and (PS) one
+    decorrelator launch a shard a chunk."""
+    from aacjax_torch.runtime import mesh as meshlib
+    name = "ps-512 4x1" if ps else "he-512 4x1"
+    config, corpus = he_corpus(ps)
+    chunks = mesh_serving_chunks(corpus, MESH_CHUNKS, HE_CHUNK)
+    n = len(chunks)
+    m41 = meshlib.make_mesh(4, 1, devices=devs)
+    for mesh in (None, m41):     # warm-up chunk on each side
+        mesh_decode(torch, f"{name} warm-up", config, chunks[:1], mesh,
+                    True, he=True, ps=ps)
+    total, walls, errs = {}, {}, []
+    for out_int16 in (False, True):
+        ref, ref_wall, _ = mesh_decode(torch, name, config, chunks, None,
+                                       out_int16, he=True, ps=ps)
+        got, wall, counts = mesh_decode(torch, name, config, chunks, m41,
+                                        out_int16, he=True, ps=ps)
+        check(counts["tail"] == 4 * n and counts["ps_decorr"] ==
+              (4 * n if ps else 0), f"{name}: launches {counts}")
+        add_counts(total, counts)
+        walls[out_int16] = (wall, ref_wall)
+        if out_int16:
+            stats = he_i16_check([(g, r, k * HE_CHUNK) for k, (g, r) in
+                                  enumerate(zip(got, ref))], name)
+        else:
+            errs = [he_close(g, r, f"{name} chunk {k}", MESH_HE_TOL)
+                    for k, (g, r) in enumerate(zip(got, ref))]
+    audio_s = N_STREAMS * n * HE_CHUNK * 2048 / 44100.0
+    say(f"mesh {name}: f32 within {max(errs):.3g} * max(1, max|ref|) of the "
+        f"unsharded card run (bar {MESH_HE_TOL}); int16 frames 0-1 up to "
+        f"{stats['onset'][0]} LSB on {stats['onset'][1]:.5f} of samples, "
+        f"later frames up to {stats['steady'][0]} LSB on "
+        f"{stats['steady'][1]:.6f}; launches over both runs {total}; "
+        f"realtime_x (int16 run) {audio_s / walls[True][0]:.1f} sharded, "
+        f"{audio_s / walls[True][1]:.1f} unsharded")
+    return total
+
+
+def mesh_encode(torch, devs) -> dict:
+    """ENC-512 on a 4x1 mesh (256 channel rows a shard), MESH_CHUNKS chunks
+    of encode_pipelined after a warm-up chunk on each side, against the
+    unsharded card run: every frame byte-identical (the rows are
+    independent), and each stream's decoded SNR beside the unsharded
+    stream's.  Returns the decodes' launches."""
+    import aacjax_torch
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.testing import encode_serving_pcm
+    L = ENC_CHUNK * 1024
+    pcm = encode_serving_pcm(ENC_STREAMS, MESH_CHUNKS * L)
+    chunks = [pcm[:, k * L:(k + 1) * L] for k in range(MESH_CHUNKS)]
+    m41 = meshlib.make_mesh(4, 1, devices=devs)
+    runs, walls = [], []
+    for mesh in (None, m41):
+        enc = aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
+                                        n_streams=ENC_STREAMS, mesh=mesh)
+        list(enc.encode_pipelined(iter(chunks[:1])))     # warm-up chunk
+        enc = aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
+                                        n_streams=ENC_STREAMS, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(list(enc.encode_pipelined(iter(chunks))))
+        walls.append(time.perf_counter() - t0)
+    same = total = 0
+    for k in range(MESH_CHUNKS):
+        for a, b in zip(runs[0][k], runs[1][k]):
+            same += sum(x == y for x, y in zip(a, b))
+            total += len(a)
+    check(same == total, f"enc-512 4x1: {total - same} of {total} frames "
+          "differ from the unsharded card run")
+    counts, snrs = {}, []
+    for outs in runs:
+        payloads = [[p for o in outs for p in o[s]]
+                    for s in range(ENC_STREAMS)]
+        dec = aacjax_torch.BatchDecoder([enc.config] * ENC_STREAMS,
+                                        chunk_frames=ENC_CHUNK)
+        reset_launches()
+        dec_outs = list(dec.decode_pipelined(iter(
+            [[p[k * ENC_CHUNK:(k + 1) * ENC_CHUNK] for p in payloads]
+             for k in range(MESH_CHUNKS)]), out_int16=False))
+        add_counts(counts, read_launches())
+        snrs.append(enc_snrs(dec, dec_outs, pcm, range(ENC_STREAMS)))
+    worst = max(abs(a - b) for a, b in zip(*snrs))
+    check(worst <= 0.5, f"enc-512 4x1: a stream's SNR is {worst:.3f} dB from "
+          "the unsharded run's")
+    audio_s = ENC_STREAMS * MESH_CHUNKS * L / 44100
+    say(f"mesh enc-512 4x1: all {total} frames byte-identical to the "
+        f"unsharded card run; every stream's SNR within {worst:.4f} dB of "
+        f"its unsharded SNR (median {float(np.median(snrs[1])):.2f} dB); "
+        f"realtime_x {audio_s / walls[1]:.1f} sharded, "
+        f"{audio_s / walls[0]:.1f} unsharded (after a warm-up chunk each)")
+    return counts
+
+
+def phase_mesh(torch) -> dict:
+    """The mesh (runtime/mesh.py): LC-512 on 4x1 and 2x2, Main-512 on 2x2,
+    HE-512 and PS-512 on 4x1, ENC-512 on 4x1, and
+    graft_entry.dryrun_multichip(4); the shards on distinct cards where the
+    machine has 4, else virtual shards of cuda:0.  Returns the launches of
+    every run."""
+    from aacjax_torch import graft_entry
+    t0 = time.perf_counter()
+    devs = mesh_devices(torch, MESH_SHARDS)
+    where = ("distinct cards" if len(set(devs)) == MESH_SHARDS
+             else "one card (virtual shards)")
+    say(f"mesh: {MESH_SHARDS} shards on {where} {[str(d) for d in devs]}; "
+        f"{torch.cuda.device_count()} card(s)")
+    counts = mesh_lc(torch, devs)
+    add_counts(counts, mesh_main(torch, devs))
+    add_counts(counts, mesh_he(torch, devs, ps=False))
+    add_counts(counts, mesh_he(torch, devs, ps=True))
+    add_counts(counts, mesh_encode(torch, devs))
+    reset_launches()
+    for line in graft_entry.dryrun_multichip(MESH_SHARDS, devices=devs):
+        say(f"mesh dryrun_multichip({MESH_SHARDS}): {line}")
+    add_counts(counts, read_launches())
+    say(f"mesh: phase done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{counts}")
+    return counts
+
+
 T0 = time.perf_counter()
 
 
@@ -1910,7 +2203,7 @@ def main() -> None:
     for phase in (phase_slice, phase_slice_tns, phase_slice_main,
                   phase_slice_mc, phase_decode_adts, phase_he_serving,
                   phase_he_routes, phase_ps_serving, phase_ps_routes,
-                  phase_surfaces, phase_encode_serving):
+                  phase_surfaces, phase_encode_serving, phase_mesh):
         for kernel, n in phase(torch).items():
             launches[kernel] += n
     for kernel in KERNELS:

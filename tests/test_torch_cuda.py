@@ -859,3 +859,53 @@ def test_ps_routes_on_card_match_cpu(dev):
         outs[device] = d2.step_he_raw([pays[3:6]])
         np.testing.assert_array_equal(outs[device], d.step_he_raw([pays[3:6]]))
     _he_close(outs[dev], outs["cpu"], "after restore", HE_ROUTE_TOL)
+
+
+# -- the mesh -------------------------------------------------------------------
+def _mesh_run(configs, chunks, mesh, dev):
+    dec = aacjax_torch.BatchDecoder(configs, chunk_frames=8, device=dev)
+    outs = list(dec.decode_pipelined(iter(chunks), out_int16=True,
+                                     mesh=mesh))
+    return outs, dec
+
+
+def test_virtual_mesh_bit_equal_to_unsharded(dev):
+    """A 2x1 mesh of virtual shards on one card: 32 stereo streams (32
+    slots a shard, the fused tail on every shard as unsharded), every chunk
+    bit-equal to the unsharded run, one tail launch a shard a chunk."""
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.testing.streams import make_lc_payload_chunks
+    configs, chunks = make_lc_payload_chunks(n_streams=32, chunk_frames=8,
+                                             n_chunks=3, seed=2)
+    want, d0 = _mesh_run(configs, chunks, None, dev)
+    m = meshlib.make_mesh(2, 1, devices=[torch.device("cuda", 0)] * 2)
+    before = tail.launches
+    got, d1 = _mesh_run(configs, chunks, m, dev)
+    assert tail.launches - before == 2 * len(chunks)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert torch.equal(d1.overlap, d0.overlap)
+
+
+def test_two_card_mesh_matches_unsharded(dev):
+    """A 2x1 mesh of two cards (peer copies of the state between them at a
+    mesh change): every chunk bit-equal to one card's run, and the decoder
+    goes on without a mesh afterwards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        reason = f"needs 2 CUDA devices, this machine has {n}"
+        print(reason)
+        pytest.skip(reason)
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.testing.streams import make_lc_payload_chunks
+    configs, chunks = make_lc_payload_chunks(n_streams=32, chunk_frames=8,
+                                             n_chunks=3, seed=2)
+    want, d0 = _mesh_run(configs, chunks, None, dev)
+    m = meshlib.make_mesh(2, 1)
+    assert m.row_devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    got, d1 = _mesh_run(configs, chunks, m, dev)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert d1._ov.devices == m.row_devices
+    assert torch.equal(d1.overlap, d0.overlap)
+    assert d1.overlap.device == torch.device("cuda", 0)

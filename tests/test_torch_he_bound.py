@@ -54,7 +54,7 @@ def _cores(chunk, config):
     1/32768 scale, and its SBR planes and cfg planes."""
     dec = BatchDecoder([config] * len(chunk), chunk_frames=T, device="cpu")
     parsed, dense, ctx = dec._he_host_phase(chunk, compact=False)
-    b = P.unpack_spec_batch(dec._upload_batch(dict(parsed)))
+    b = P.unpack_spec_batch(dict(parsed))
     spec = b["spec"]
     C, _, F = spec.shape
     idx = [b[k] for k in ("f_idx", "s_idx", "shape_idx", "prev_shape_idx",

@@ -28,7 +28,8 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
           "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
-          "testing/sbr_encoder.py", "testing/mp4mux.py")
+          "testing/sbr_encoder.py", "testing/mp4mux.py",
+          "testing/ffmpeg_oracle.py")
 
 _NO_JAX_DECODE = r"""
 import sys
@@ -90,6 +91,19 @@ out, rate = aacjax_torch.decode_m4a(m4a, device="cpu")
 assert out.shape == (4096, 2)
 f = aacjax_torch.AACFile(m4a, device="cpu")
 assert np.array_equal(f.read(1000, 500), out[1000:1500])
+# the mesh: decode_pipelined on a 2x1 mesh of the CPU, as unsharded
+import torch
+from aacjax_torch.runtime import mesh as meshlib
+from aacjax_torch.testing.streams import make_lc_payload_chunks
+configs, chunks = make_lc_payload_chunks(n_streams=2, chunk_frames=4,
+                                         n_chunks=2, seed=3)
+outs = []
+for mesh in (None, meshlib.make_mesh(2, 1, devices=[torch.device("cpu")] * 2)):
+    d = aacjax_torch.BatchDecoder(configs, chunk_frames=4, device="cpu")
+    outs.append(list(d.decode_pipelined(iter(chunks), out_int16=True,
+                                        mesh=mesh)))
+for a, b in zip(*outs):
+    assert np.abs(a.astype(np.int32) - b).max() <= 1
 loaded = sorted(k for k in sys.modules if k == "aacjax" or k.startswith("aacjax."))
 assert loaded == [], loaded
 print("ok", round(snr, 1))

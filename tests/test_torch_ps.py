@@ -44,6 +44,7 @@ from aacjax_torch.host.ps import PSContext, read_ps_data
 from aacjax_torch.kernels import ps_batch as TPS
 from aacjax_torch.kernels import ps_decorr
 from aacjax_torch.kernels import sbr_batch as TSB
+from aacjax_torch.runtime import mesh as meshlib
 from aacjax_torch.runtime.batch import BatchDecoder
 from aacjax_torch.testing import ps_flip_stream, ps_specs, ps_stream
 from aacjax_torch.testing.sbr_encoder import PSSpec, write_ps_data
@@ -405,7 +406,7 @@ def test_sbr_ps_apply_matches_reference(modes, out_int16):
                        device="cpu")
     parsed, dense, ctx = dec._he_host_phase(
         [_payloads(s)[:4] for s in streams], compact=False)
-    core = dec._device_step(dec._upload_batch(parsed), out_int16=False)
+    core = meshlib.gather(dec._device_step(parsed), dec.device)
     dual = len(ctx["ps_modes"]) == 2
     assert ctx["ps_modes"] == sorted(set(modes))
     ps = dict(ctx["ps_planes"])
@@ -599,7 +600,7 @@ HAVE_ORACLE = None
 def _oracle():
     global HAVE_ORACLE
     if HAVE_ORACLE is None:
-        from aacjax.testing import ffmpeg_oracle
+        from aacjax_torch.testing import ffmpeg_oracle
         HAVE_ORACLE = ffmpeg_oracle.available()
     return HAVE_ORACLE
 
@@ -610,7 +611,7 @@ def test_decode_adts_ps_matches_libavcodec(ps):
     libavcodec on both channels."""
     if not _oracle():
         pytest.skip("libavcodec oracle not built")
-    from aacjax.testing import ffmpeg_oracle
+    from aacjax_torch.testing import ffmpeg_oracle
     stream = ps_stream(ps)
     pcm, rate = aacjax_torch.decode_adts(stream, chunk_frames=4,
                                          device="cpu")
