@@ -31,6 +31,11 @@ XLA's in the last bit, and a `floor` can turn that into a one-step
 difference in a scalefactor or a quantized value;
 tests/test_torch_encode_batch.py measures how often.
 
+On the card both run as the reference runs them, compiled:
+`_jitted_analysis` and `_jitted_quantize` capture each once per
+configuration, shapes and device as a CUDA graph and replay it
+(runtime/graphs.py).
+
 Several devices (`mesh=`, runtime/mesh.py): both programs are row-local,
 so each 'stream' shard encodes its equal block of channel rows on its
 device; the rate choice stays one host pass over the gathered estimates.
@@ -59,6 +64,7 @@ from aacjax_torch.encode import (EIGHT_SHORT, PsyParams,
                                  detect_transients, window_sequence_plan)
 from aacjax_torch.host.asc import make_asc, parse_asc
 from aacjax_torch.kernels import _build
+from aacjax_torch.runtime import graphs
 from aacjax_torch.runtime import mesh as meshlib
 
 FRAME = 1024
@@ -363,6 +369,27 @@ def _quantize_fn(w8: int = FRAME // 8):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_analysis(sample_index: int, cutoff_bin: int, frame: int,
+                     n_frames: int, psy_key: tuple) -> graphs.Program:
+    """The analysis program compiled as the reference's `_jitted_analysis`:
+    fn(pcm_i16, w_idx, is_short) on one device, a CUDA graph per key on the
+    card (runtime/graphs.py), the eager program on CPU tensors."""
+    def fn(pcm_i16, w_idx, is_short):
+        return _analysis_fn(sample_index, cutoff_bin, frame, n_frames,
+                            psy_key, pcm_i16.device)(pcm_i16, w_idx, is_short)
+    return graphs.Program("encode_analysis", fn,
+                          (sample_index, cutoff_bin, frame, n_frames, psy_key))
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_quantize(w8: int = FRAME // 8) -> graphs.Program:
+    """The quantize program compiled as the reference's `_jitted_quantize`
+    (keyed by w8; the reference's one-hot form, which its other keys
+    select, is a gather here in every case)."""
+    return graphs.Program("encode_quantize", _quantize_fn(w8), (w8,))
+
+
 # ---------------------------------------------------------------------------
 # host orchestration
 # ---------------------------------------------------------------------------
@@ -424,7 +451,7 @@ class BatchEncoder:
         cut_s = int(self._arr["cfg"].swb_offsets_short[
             self._arr["max_sfb_s"]])
         self._w8 = min(max(-(-cut_l // 8), cut_s), FRAME // 8)
-        self._quantize = _quantize_fn(self._w8)
+        self._quantize = _jitted_quantize(self._w8)
         self._reservoir = np.zeros(n_streams)
         self._res_cap = 6.0 * bitrate * FRAME / sample_rate
         # online calibration of the device bit estimate against bits
@@ -578,10 +605,10 @@ class BatchEncoder:
                 self._psy.spread_down_db)
 
     def _analysis_for(self, nF: int):
-        """The (cached) analysis program for this chunk length on
-        self.device."""
-        return _analysis_fn(self._si, self._cutoff_bin, FRAME, nF,
-                            self._psy_key(), self.device)
+        """The compiled analysis program for this chunk length
+        (_jitted_analysis)."""
+        return _jitted_analysis(self._si, self._cutoff_bin, FRAME, nF,
+                                self._psy_key())
 
     def _analysis_blocks(self, nF: int):
         """The analysis programs for this chunk length, one a row block on

@@ -66,21 +66,19 @@ def _example_chunk(n_streams: int, T: int, seed: int = 0):
 
 def entry(device=None):
     """(fn, example_args): fn(batch, overlap) -> (pcm, new overlap) is the
-    port's decode_step on a 2-stream, 4-frame chunk, its tensors on
-    `device` (default "cuda"; raises without CUDA)."""
-    from aacjax_torch.kernels.pipeline import decode_step
+    port's compiled decode step (jitted_decode_step: a CUDA graph on the
+    card, the eager step on the CPU) on a 2-stream, 4-frame chunk, its
+    tensors on `device` (default "cuda"; raises without CUDA)."""
+    from aacjax_torch.kernels.pipeline import jitted_decode_step
     from aacjax_torch.runtime.mesh import packed_tensor
 
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("entry: CUDA is not available; pass device='cpu'")
     batch, overlap, flags = _example_chunk(n_streams=2, T=4)
-
-    def fn(batch, overlap):
-        return decode_step(batch, overlap, flags)
-
-    return fn, ({k: packed_tensor(k, v, device) for k, v in batch.items()},
-                torch.from_numpy(overlap).to(device))
+    return jitted_decode_step(flags), (
+        {k: packed_tensor(k, v, device) for k, v in batch.items()},
+        torch.from_numpy(overlap).to(device))
 
 
 def _factor(n_devices: int) -> tuple[int, int]:

@@ -10,6 +10,7 @@ tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -17,6 +18,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -121,14 +123,37 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capturing(held: list):
+    """While this thread captures a CUDA graph (runtime/graphs.py), `launch`
+    appends the name of each entry point it calls to `held` instead of
+    counting a launch: the graph holds the launch, and each replay counts
+    it."""
+    _capture.held = held
+    try:
+        yield
+    finally:
+        _capture.held = None
+
+
+def launch(name: str, device: torch.device, *args) -> int:
     """Call entry point `name` with `device` current (the entry points read
     the current device, and their stream argument belongs to `device`);
-    raise if the launch reported a CUDA error."""
+    raise if the launch reported a CUDA error (at a capture too).  Returns
+    the launches to count: 1, or 0 when the call was captured into a
+    graph."""
     with torch.cuda.device(device):
         err = getattr(lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    held = getattr(_capture, "held", None)
+    if held is None:
+        return 1
+    held.append(name)
+    return 0
 
 
 def check(t, name: str, dtype, shape: tuple, device, align: int = 4) -> int:

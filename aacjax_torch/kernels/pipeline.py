@@ -27,9 +27,15 @@ routing, whose tail and synthesis kernels take only F == 1024, not a
 fallback.  With `use_pallas=False` every stage runs as plain PyTorch (the
 reference's XLA route).  On CPU tensors each kernel wrapper runs its plain
 version.
+
+`jitted_decode_step` and `jitted_decode_spec_step` are the two steps as the
+reference's jitted programs: on the card each is a CUDA graph, captured
+once per flags, argument shapes and device and replayed on every later call
+(runtime/graphs.py); on CPU tensors the eager step runs.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +44,7 @@ import torch
 from aacjax_torch import tables
 from aacjax_torch.kernels import _build, imdct
 from aacjax_torch.kernels import windows as W
+from aacjax_torch.runtime import graphs
 
 FRAME = 1024
 SHORT = FRAME // 8
@@ -497,3 +504,29 @@ def decode_spec_step(batch: dict, overlap_in: torch.Tensor,
         spec, pred_state = predict(spec, b, pred_state, flags, inplace=True)
     out = spec_back(spec, b, overlap_in, flags)
     return (*out, pred_state) if flags.has_pred else out
+
+
+# -- the compiled steps -----------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def jitted_decode_step(flags: PipelineFlags) -> graphs.Program:
+    """decode_step compiled as the reference's `jitted_decode_step(flags)`:
+    fn(batch, overlap[, pred_state]) -> decode_step's results, a CUDA graph
+    per key on the card, the eager step on CPU tensors.  The reference
+    donates the overlap and the predictor state; here they go in and their
+    successors come out as new tensors (runtime/graphs.py says why)."""
+    return graphs.Program(
+        "decode_step",
+        lambda batch, overlap, *pred: decode_step(batch, overlap, flags,
+                                                  *pred), (flags,))
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_decode_spec_step(flags: PipelineFlags) -> graphs.Program:
+    """decode_spec_step compiled as the reference's
+    `jitted_decode_spec_step(flags)`: fn(batch, overlap[, pred_state]), as
+    jitted_decode_step.  The graph's predictor kernel updates its own copy
+    of batch['spec'], never the caller's."""
+    return graphs.Program(
+        "decode_spec_step",
+        lambda batch, overlap, *pred: decode_spec_step(batch, overlap, flags,
+                                                       *pred), (flags,))

@@ -131,9 +131,9 @@ def apply_prediction(spec, mode, reset, nbins, used, state,
     ptrs.append(ck(state, "state", torch.float32, (C, PRED_BINS, 6), dev,
                    align=8))
     new_state = torch.empty_like(state)
-    _build.launch("aacjax_pred", dev, *ptrs, new_state.data_ptr(), C, T, F,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches += _build.launch("aacjax_pred", dev, *ptrs,
+                              new_state.data_ptr(), C, T, F,
+                              torch.cuda.current_stream(dev).cuda_stream)
     return out, new_state
 
 

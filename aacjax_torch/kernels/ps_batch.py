@@ -24,6 +24,10 @@ line (four rows carried in `hist4`, the SBR stage's eight history rows and
 its lookahead), and the delay, allpass and transient states carry between
 chunks.  The numerics follow `host/ps_decode.py`, the per-channel float64
 path that matches libavcodec.
+
+`jitted_sbr_ps_apply(out_int16, is34)` and `jitted_sbr_ps_apply_dual(
+out_int16)` are the SBR + PS programs as the reference jits them: one CUDA
+graph per key on the card (runtime/graphs.py).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 from aacjax_torch.host import ps as P
 from aacjax_torch.host.ps_decode import _make_filter, _tables
 from aacjax_torch.kernels import _build, ps_decorr, qmf
+from aacjax_torch.runtime import graphs
 
 SLOTS = 32
 MAX_DELAY = 14
@@ -364,3 +369,32 @@ def sbr_ps_apply_dual(core_pcm, dense, ps_dense, state, ps_state20,
     pcm_r = torch.where(m34, r34, r20)
     return (_route(pcm_l, pcm_r, ps_dense, B, T, F, out_int16), new_state,
             _contiguous(nps20), _contiguous(nps34))
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_sbr_ps_apply(out_int16: bool = False,
+                        is34: bool = False) -> graphs.Program:
+    """sbr_ps_apply compiled as the reference's
+    `jitted_sbr_ps_apply(out_int16, is34)`: fn(core_pcm, dense, ps_dense,
+    state, ps_state, cfg) -> (pcm, new SBR state, new PS state), one CUDA
+    graph per key on the card, the decorrelator kernel's launch inside it.
+    The reference also keys on its env-selected scan and LUT forms, which
+    the port does not have (one form each)."""
+    return graphs.Program(
+        "sbr_ps_apply",
+        lambda core_pcm, dense, ps_dense, state, ps_state, cfg: sbr_ps_apply(
+            core_pcm, dense, ps_dense, state, ps_state, cfg, out_int16, is34),
+        (out_int16, is34))
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_sbr_ps_apply_dual(out_int16: bool = False) -> graphs.Program:
+    """sbr_ps_apply_dual compiled as the reference's
+    `jitted_sbr_ps_apply_dual(out_int16)`: fn(core_pcm, dense, ps_dense,
+    state, ps20, ps34, cfg) -> (pcm, new SBR state, new 20-band and 34-band
+    PS states)."""
+    return graphs.Program(
+        "sbr_ps_apply_dual",
+        lambda core_pcm, dense, ps_dense, state, ps20, ps34, cfg:
+        sbr_ps_apply_dual(core_pcm, dense, ps_dense, state, ps20, ps34, cfg,
+                          out_int16), (out_int16,))

@@ -299,9 +299,9 @@ def decorrelate_chunk(s_r, s_i, state: dict, c: dict, sdb: int):
                 shapes[k], dev) for k in CONST_KEYS]
     d_r, d_i = torch.empty_like(s_r), torch.empty_like(s_i)
     new_state = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
-    _build.launch("aacjax_ps_decorrelate", dev, *ptrs, d_r.data_ptr(),
-                  d_i.data_ptr(), *(new_state[k].data_ptr() for k in STATE_KEYS),
-                  B, S, nb, npar, nap, sdb, M,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches += _build.launch(
+        "aacjax_ps_decorrelate", dev, *ptrs, d_r.data_ptr(), d_i.data_ptr(),
+        *(new_state[k].data_ptr() for k in STATE_KEYS),
+        B, S, nb, npar, nap, sdb, M,
+        torch.cuda.current_stream(dev).cuda_stream)
     return d_r, d_i, new_state

@@ -28,6 +28,7 @@ data (cfg planes), so one batch may mix SBR headers.
 """
 from __future__ import annotations
 
+import functools
 import pathlib
 from dataclasses import dataclass
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from aacjax_torch.kernels import _build, qmf
+from aacjax_torch.runtime import graphs
 
 MAX_ENV = 5
 BANDS = 64
@@ -378,3 +380,17 @@ def sbr_apply(core_pcm: torch.Tensor, dense: dict, state: dict, cfg: dict,
         return (torch.clamp(torch.round(pcm), -32768.0, 32767.0)
                 .to(torch.int16), new_state)
     return pcm * (1.0 / 32768.0), new_state
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_sbr_apply(out_int16: bool = False) -> graphs.Program:
+    """sbr_apply compiled as the reference's `jitted_sbr_apply(out_int16)`:
+    fn(core_pcm, dense, state, cfg) -> (pcm, new state), one program for
+    every header (the cfg planes are an argument, not a key).  The
+    reference donates the state; here it goes in and the new state comes
+    out as new tensors."""
+    return graphs.Program(
+        "sbr_apply",
+        lambda core_pcm, dense, state, cfg: sbr_apply(core_pcm, dense, state,
+                                                      cfg, out_int16),
+        (out_int16,))

@@ -48,7 +48,7 @@ def synthesis(spec, f_idx, s_idx, shape_idx, prev_shape_idx, is_short):
                                        "rise", "fall")]
     first = torch.empty((B, FRAME), dtype=torch.float32, device=dev)
     second = torch.empty((B, FRAME), dtype=torch.float32, device=dev)
-    _build.launch("aacjax_synth", dev, *ptrs, first.data_ptr(), second.data_ptr(),
-                  B, torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches += _build.launch("aacjax_synth", dev, *ptrs, first.data_ptr(),
+                              second.data_ptr(), B,
+                              torch.cuda.current_stream(dev).cuda_stream)
     return first, second

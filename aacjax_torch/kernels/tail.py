@@ -82,8 +82,8 @@ def decode_tail(spec, spec_scale, f_idx, s_idx, shape_idx, prev_shape_idx,
     pcm = torch.empty((C, T, F), dtype=torch.int16 if out_int16
                       else torch.float32, device=dev)
     new_overlap = torch.empty((C, F), dtype=torch.float32, device=dev)
-    _build.launch("aacjax_tail", dev, *ptrs, pcm.data_ptr(),
-                  new_overlap.data_ptr(), int(out_int16), int(has_short),
-                  C, T, torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches += _build.launch("aacjax_tail", dev, *ptrs, pcm.data_ptr(),
+                              new_overlap.data_ptr(), int(out_int16),
+                              int(has_short), C, T,
+                              torch.cuda.current_stream(dev).cuda_stream)
     return pcm, new_overlap

@@ -153,13 +153,12 @@ def _launch(x, scale, C, T, F, lpc_f, lpc_r, lpc_row, ranges, rng_row,
     items = torch.empty((N_LISTS, 2 * SLOTS * rows), dtype=torch.int32,
                         device=dev)
     counts = torch.zeros(N_LISTS, dtype=torch.int32, device=dev)
-    _build.launch("aacjax_tns", dev, x.data_ptr(),
-                  0 if scale is None else scale.data_ptr(),
-                  0 if scale is None else 1, lpc_f, lpc_r, lpc_row, *ranges,
-                  rng_row, rng_slot, out.data_ptr(), items.data_ptr(),
-                  counts.data_ptr(), rows, F,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches += _build.launch(
+        "aacjax_tns", dev, x.data_ptr(),
+        0 if scale is None else scale.data_ptr(), 0 if scale is None else 1,
+        lpc_f, lpc_r, lpc_row, *ranges, rng_row, rng_slot, out.data_ptr(),
+        items.data_ptr(), counts.data_ptr(), rows, F,
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -22,7 +22,14 @@ copies to the device run on their own stream, the decode step on a
 compute stream and the copies back on a third, ordered by CUDA events.
 The overlap, the predictor state and the SBR state are read and written
 only on the compute stream, so consecutive chunks need no event between
-them.
+them.  The device programs (the decode steps, the SBR and SBR + PS
+programs) run compiled, as the reference's jitted programs run: a CUDA
+graph per key, captured at a key's first chunk and replayed after
+(runtime/graphs.py).  A replay copies its inputs in and its outputs and the
+new state out on the compute stream, so chunk n + 1's upload lands in the
+decoder's own tensors while chunk n replays, and the state that reset_stream,
+restore_state or a mesh's re-split writes between chunks is what the next
+replay reads.
 
 HE-AAC (`step_he_raw`, `decode_he_pipelined`): the native parser decodes
 the core and records where each frame's SBR extension sits; Python parses
@@ -751,7 +758,9 @@ class BatchDecoder:
                      use_pallas: bool = True, mesh=None):
         """Dispatch decode_spec_step on every shard of `mesh` (no mesh: one
         shard, the whole chunk on self.device), each on its device's compute
-        stream (meshlib.sharded_decode_spec_step); the overlap and, for a
+        stream (meshlib.sharded_decode_spec_step: on the kernel route the
+        compiled step, a CUDA graph replayed per shard on the card); the
+        overlap and, for a
         batch with a Main-profile stream, the predictor state are replaced
         by the step's.  Takes a batch from _upload_batch over the same mesh,
         or a parsed one, which it uploads first.  Returns the PCM as
@@ -1354,8 +1363,9 @@ class BatchDecoder:
                       ps_dense: list | None, ctx: dict, out_int16: bool,
                       mesh: meshlib.Mesh):
         """Device half of the SBR stage: on the core PCM, row blocks on the
-        stream shards' first devices, each shard runs the batched SBR
-        program, or the SBR + PS program when the chunk carries PS, on its
+        stream shards' first devices, each shard runs the compiled SBR
+        program, or the SBR + PS program when the chunk carries PS (a CUDA
+        graph replayed on the card: runtime/graphs.py), on its
         own rows there (its rows of the planes from _sbr_upload, of the cfg
         planes and of the state), on that device's compute stream.  Slots
         that turn sticky this chunk first get host copies of their state

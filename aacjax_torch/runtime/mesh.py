@@ -17,8 +17,9 @@ GSPMD partitions, with zero collectives.  So is this port, without
 shard is a contiguous block of channel slots (whole streams: blocks split
 on stream boundaries, `split_streams`) times a block of frames.  Each
 sharded program takes per-shard inputs, runs the port's own single-device
-function on each shard's device (the kernels unchanged, each launched for
-its shard) and returns per-shard outputs.  The caller enqueues each
+program on each shard's device (its compiled form, a CUDA graph on the
+card: runtime/graphs.py; the kernels unchanged, each launched for its
+shard) and returns per-shard outputs.  The caller enqueues each
 device's work on that device's current CUDA stream; data that crosses
 devices moves with `Tensor.to`, which orders itself against the current
 streams of both devices (a peer copy between two cards, nothing at all
@@ -348,14 +349,58 @@ def shard_spec_batch(mesh: Mesh, batch: dict, lay: Layout) -> Shards:
 
 
 # -- the decode steps ---------------------------------------------------------
+# A shard's step runs as the reference's jitted program (a CUDA graph on the
+# card, runtime/graphs.py) on the kernel route; the plain route
+# (flags.use_pallas False, the reference's XLA route that the checks compare
+# with) runs the eager functions.
+_STEPS = {"step": (P.decode_step, P.jitted_decode_step, P.step_front,
+                   P.step_back),
+          "spec": (P.decode_spec_step, P.jitted_decode_spec_step,
+                   P.spec_front, P.spec_back)}
+
+
+def _whole_step(kind: str, flags: P.PipelineFlags):
+    """fn(batch, overlap[, pred_state]): a whole chunk's step of `kind`."""
+    eager, jitted, _, _ = _STEPS[kind]
+    if flags.use_pallas:
+        return jitted(flags)
+    return lambda b, ov, *pred: eager(b, ov, flags, *pred)
+
+
+def _pred_shard_fn(kind: str, flags: P.PipelineFlags, h: int):
+    """One frame shard of a predicted chunk: fn(b, ov, pred_state, halo) ->
+    (pcm, new overlap, new predictor state, the shard's own predicted
+    spectra), b unpacked, halo the previous shard's last h predicted frames
+    (None for h == 0)."""
+    _, _, front, back = _STEPS[kind]
+
+    def fn(b, ov, pred_state, halo):
+        spec = front(b, flags)
+        own = {key: b[key][:, h:].contiguous() for key in
+               ("pred_mode", "pred_reset", "pred_nbins", "pred_used")}
+        spec_own, pred_state = P.predict(spec[:, h:].contiguous(), own,
+                                         pred_state, flags)
+        spec = torch.cat([halo, spec_own], dim=1) if h else spec_own
+        return (*back(spec, b, ov, flags), pred_state, spec_own)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _pred_shard_program(kind: str, flags: P.PipelineFlags, h: int):
+    from aacjax_torch.runtime import graphs
+    return graphs.Program(f"{kind}_pred_shard",
+                          _pred_shard_fn(kind, flags, h), (flags, h))
+
+
 def _row_step(parts: list, devs: tuple, lay: Layout, ov, pred_state,
-              flags: P.PipelineFlags, whole, front, back):
-    """One stream shard's chunk over its frame shards: (pcm [rows, T, F]
-    on devs[0], new overlap, new predictor state or None)."""
+              flags: P.PipelineFlags, kind: str):
+    """One stream shard's chunk over its frame shards: (pcm [rows, T, F] on
+    devs[0], new overlap, new predictor state or None)."""
+    whole = _whole_step(kind, flags)
     if len(parts) == 1:
         if flags.has_pred:
-            return whole(parts[0], ov, flags, pred_state)
-        return (*whole(parts[0], ov, flags), None)
+            return whole(parts[0], ov, pred_state)
+        return (*whole(parts[0], ov), None)
     if flags.has_pred and flags.eld:
         raise ValueError("ELD has no Main-profile prediction")
     home = devs[0]
@@ -368,19 +413,13 @@ def _row_step(parts: list, devs: tuple, lay: Layout, ov, pred_state,
         # starts later reads only its halo
         ov_k = ov.to(dev) if s == 0 else torch.zeros_like(ov, device=dev)
         if flags.has_pred:
-            spec = front(b, flags)
-            own = {key: b[key][:, h:].contiguous() for key in
-                   ("pred_mode", "pred_reset", "pred_nbins", "pred_used")}
-            spec_own, pred_state = P.predict(spec[:, h:].contiguous(), own,
-                                             pred_state.to(dev), flags)
-            if h:
-                spec = torch.cat([prev[:, -h:].to(dev), spec_own], dim=1)
-            else:
-                spec = spec_own
-            prev = spec_own
-            pcm_k, new_k = back(spec, b, ov_k, flags)
+            step = (_pred_shard_program(kind, flags, h) if flags.use_pallas
+                    else _pred_shard_fn(kind, flags, h))
+            pcm_k, new_k, pred_state, prev = step(
+                b, ov_k, pred_state.to(dev),
+                prev[:, -h:].to(dev) if h else None)
         else:
-            pcm_k, new_k = whole(b, ov_k, flags)
+            pcm_k, new_k = whole(b, ov_k)
         new_k = new_k.to(home)
         lv_k = b["last_valid"].to(home)
         carry = (new_k if carry is None
@@ -390,7 +429,7 @@ def _row_step(parts: list, devs: tuple, lay: Layout, ov, pred_state,
     return torch.cat(pcms, dim=1), carry, state
 
 
-def _sharded_step(flags, mesh, whole, front, back, shards: Shards, overlap,
+def _sharded_step(flags, mesh, kind: str, shards: Shards, overlap,
                   pred_state=None):
     lay = shards.layout
     devs = mesh.row_devices
@@ -399,7 +438,7 @@ def _sharded_step(flags, mesh, whole, front, back, shards: Shards, overlap,
              else None)
     outs = [_row_step(shards.parts[i], mesh.devices[i], lay, ov.parts[i],
                       preds.parts[i] if preds is not None else None, flags,
-                      whole, front, back)
+                      kind)
             for i in range(len(lay.rows))]
     pcm, new_ov, new_pred = (RowBlocks([o[j] for o in outs], lay.rows, devs)
                              for j in range(3))
@@ -410,17 +449,16 @@ def sharded_decode_step(flags: P.PipelineFlags, mesh: Mesh):
     """decode_step over the mesh: fn(shards (shard_batch), overlap[,
     pred_state]) -> (pcm, new overlap[, new predictor state]), RowBlocks
     over the stream shards.  The overlap and the state may come whole or
-    as row blocks."""
-    return functools.partial(_sharded_step, flags, mesh, P.decode_step,
-                             P.step_front, P.step_back)
+    as row blocks.  Each shard replays its compiled step on its device
+    (jitted_decode_step) on the kernel route."""
+    return functools.partial(_sharded_step, flags, mesh, "step")
 
 
 def sharded_decode_spec_step(flags: P.PipelineFlags, mesh: Mesh):
     """decode_spec_step over the mesh, as sharded_decode_step, on shards of
     the native parser's batch (shard_spec_batch); with flags.has_pred it
     also takes and returns the predictor state."""
-    return functools.partial(_sharded_step, flags, mesh, P.decode_spec_step,
-                             P.spec_front, P.spec_back)
+    return functools.partial(_sharded_step, flags, mesh, "spec")
 
 
 # -- batched SBR / Parametric Stereo programs ---------------------------------
@@ -459,44 +497,43 @@ def _per_row(fn, n_out: int, bounds, devs, *args):
 
 
 def sharded_sbr_apply(mesh: Mesh, out_int16: bool = False):
-    """sbr_apply per stream shard: fn(core_pcm, dense, state, cfg) ->
-    (pcm, new state); core_pcm and state are RowBlocks, dense and cfg lists
-    of per-shard dicts (shard_stream_tree)."""
-    from aacjax_torch.kernels.sbr_batch import sbr_apply
+    """The compiled sbr_apply (jitted_sbr_apply) per stream shard:
+    fn(core_pcm, dense, state, cfg) -> (pcm, new state); core_pcm and state
+    are RowBlocks, dense and cfg lists of per-shard dicts
+    (shard_stream_tree)."""
+    from aacjax_torch.kernels.sbr_batch import jitted_sbr_apply
+    prog = jitted_sbr_apply(out_int16)
 
     def fn(core_pcm, dense, state, cfg):
-        return _per_row(
-            lambda c, d, s, g: sbr_apply(c, d, s, g, out_int16), 2,
-            core_pcm.bounds, core_pcm.devices, core_pcm, dense, state, cfg)
+        return _per_row(prog, 2, core_pcm.bounds, core_pcm.devices, core_pcm,
+                        dense, state, cfg)
     return fn
 
 
 def sharded_sbr_ps_apply(mesh: Mesh, out_int16: bool = False,
                          is34: bool = False):
-    """sbr_ps_apply per stream shard: fn(core_pcm, dense, ps_dense, state,
-    ps_state, cfg) -> (pcm, new SBR state, new PS state)."""
-    from aacjax_torch.kernels.ps_batch import sbr_ps_apply
+    """The compiled sbr_ps_apply per stream shard: fn(core_pcm, dense,
+    ps_dense, state, ps_state, cfg) -> (pcm, new SBR state, new PS
+    state)."""
+    from aacjax_torch.kernels.ps_batch import jitted_sbr_ps_apply
+    prog = jitted_sbr_ps_apply(out_int16, is34)
 
     def fn(core_pcm, dense, ps_dense, state, ps_state, cfg):
-        return _per_row(
-            lambda c, d, p, s, q, g: sbr_ps_apply(c, d, p, s, q, g,
-                                                  out_int16, is34), 3,
-            core_pcm.bounds, core_pcm.devices, core_pcm, dense, ps_dense,
-            state, ps_state, cfg)
+        return _per_row(prog, 3, core_pcm.bounds, core_pcm.devices, core_pcm,
+                        dense, ps_dense, state, ps_state, cfg)
     return fn
 
 
 def sharded_sbr_ps_apply_dual(mesh: Mesh, out_int16: bool = False):
-    """sbr_ps_apply_dual per stream shard: fn(core_pcm, dense, ps_dense,
-    state, ps20, ps34, cfg) -> (pcm, SBR state, 20-band, 34-band state)."""
-    from aacjax_torch.kernels.ps_batch import sbr_ps_apply_dual
+    """The compiled sbr_ps_apply_dual per stream shard: fn(core_pcm, dense,
+    ps_dense, state, ps20, ps34, cfg) -> (pcm, SBR state, 20-band, 34-band
+    state)."""
+    from aacjax_torch.kernels.ps_batch import jitted_sbr_ps_apply_dual
+    prog = jitted_sbr_ps_apply_dual(out_int16)
 
     def fn(core_pcm, dense, ps_dense, state, ps20, ps34, cfg):
-        return _per_row(
-            lambda c, d, p, s, a, b, g: sbr_ps_apply_dual(c, d, p, s, a, b,
-                                                          g, out_int16), 4,
-            core_pcm.bounds, core_pcm.devices, core_pcm, dense, ps_dense,
-            state, ps20, ps34, cfg)
+        return _per_row(prog, 4, core_pcm.bounds, core_pcm.devices, core_pcm,
+                        dense, ps_dense, state, ps20, ps34, cfg)
     return fn
 
 
@@ -517,23 +554,25 @@ def _row_sharding(mesh: Mesh, n_rows: int) -> tuple:
 
 def sharded_encode_analysis(sample_index: int, cutoff_bin: int, frame: int,
                             n_frames: int, psy_key: tuple, mesh: Mesh):
-    """The encoder analysis per stream shard: fn(pcm_i16, w_idx, is_short),
-    each a list of the shards' row blocks on their devices, -> the list of
-    the shards' outputs (coefs, base, fit_sf, est, bin_band)."""
-    from aacjax_torch.encode_batch import _analysis_fn
-    fns = [_analysis_fn(sample_index, cutoff_bin, frame, n_frames, psy_key,
-                        dev) for dev in mesh.row_devices]
+    """The compiled encoder analysis (_jitted_analysis) per stream shard:
+    fn(pcm_i16, w_idx, is_short), each a list of the shards' row blocks on
+    their devices, -> the list of the shards' outputs (coefs, base, fit_sf,
+    est, bin_band)."""
+    from aacjax_torch.encode_batch import _jitted_analysis
+    prog = _jitted_analysis(sample_index, cutoff_bin, frame, n_frames,
+                            psy_key)
 
     def fn(pcm_i16, w_idx, is_short):
-        return [f(*a) for f, a in zip(fns, zip(pcm_i16, w_idx, is_short))]
+        return [prog(*a) for a in zip(pcm_i16, w_idx, is_short)]
     return fn
 
 
 def sharded_encode_quantize(mesh: Mesh, w8: int):
-    """The encoder quantize per stream shard: fn(outs, off, is_short_row),
-    lists over the shards, -> the list of (packed q, sf)."""
-    from aacjax_torch.encode_batch import _quantize_fn
-    q = _quantize_fn(w8)
+    """The compiled encoder quantize (_jitted_quantize) per stream shard:
+    fn(outs, off, is_short_row), lists over the shards, -> the list of
+    (packed q, sf)."""
+    from aacjax_torch.encode_batch import _jitted_quantize
+    q = _jitted_quantize(w8)
 
     def fn(outs, off, is_short_row):
         return [q(c, b, f, bb, o, s) for (c, b, f, _e, bb), o, s in

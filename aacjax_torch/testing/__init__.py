@@ -883,3 +883,114 @@ def encode_serving_pcm(n_streams: int, n_samples: int) -> np.ndarray:
         pcm[s, :, 0] = r
         pcm[s, :, 1] = 0.8 * np.roll(r, 41)
     return pcm
+
+
+# -- inputs of the compiled programs (runtime/graphs.py), chunk after chunk ---
+def spec_step_chunk(seed: int, C: int, T: int, *, i16: bool = False,
+                    tns: bool = False, pred: bool = False) -> dict:
+    """A chunk in the native parser's format, the batch of
+    `decode_spec_step`: meta [C,T,6] (random_tail_chunk's windows and
+    valid frames), the spectra (spec f32, or spec_i16 + spec_scale with
+    i16), with tns the packed TNS planes of serving_tns_chunk's mix
+    (tns_lpc [C,T,2,8,20], tns_range [C,T,2,8,2]), with pred the predictor
+    planes (pred_meta [C,T,3] of mode, reset group, bins; pred_used_u8
+    [C,T,672]).  numpy arrays."""
+    b = random_tail_chunk(seed, C, T, i16=False)
+    meta = np.stack([b[k] for k in ("f_idx", "s_idx", "shape_idx",
+                                    "prev_shape_idx", "is_short", "valid")],
+                    axis=-1).astype(np.int32)
+    out = dict(meta=meta)
+    if i16:
+        out["spec_i16"], out["spec_scale"] = block_scale_i16(b["spec"])
+    else:
+        out["spec"] = b["spec"]
+    if tns:
+        _, _, out["tns_lpc"], out["tns_range"] = serving_tns_chunk(
+            seed + 1, C, T)
+    if pred:
+        rng = np.random.default_rng(seed + 2)
+        mode = rng.choice([0, 1, 1, 1, 1, 2], size=(C, T))
+        reset = np.where(rng.random((C, T)) < 0.33,
+                         rng.integers(1, 31, (C, T)), 0)
+        nbins = rng.choice([672, 672, 640, 100], size=(C, T))
+        out["pred_meta"] = np.stack([mode, reset, nbins],
+                                    axis=-1).astype(np.int32)
+        out["pred_used_u8"] = np.repeat(rng.random((C, T, 42)) < 0.5, 16,
+                                        axis=-1).astype(np.uint8)
+    return out
+
+
+def packed_step_chunks(n_streams: int, T: int, n_chunks: int,
+                       seed: int = 0):
+    """n_chunks chunks of T frames of n_streams Main-profile stereo streams
+    (main_stereo_payloads: prediction, reset groups, short windows, M/S,
+    TNS), parsed on the python route and packed (`pack_frames`), the batch
+    of `decode_step`.  Returns (list of (numpy batch, flags), C)."""
+    from aacjax_torch.runtime.batch import BatchDecoder
+    from aacjax_torch.runtime.pack import pack_frames
+    dec = BatchDecoder([main_config()] * n_streams, chunk_frames=T,
+                       use_native=False, device="cpu")
+    frames = [dec.parse_stream_frames(
+        i, main_stereo_payloads(T * n_chunks, seed + i))
+        for i in range(n_streams)]
+    out = []
+    for k in range(n_chunks):
+        per_slot = [(dec.streams[i].base_slot, f[k * T:(k + 1) * T])
+                    for i, f in enumerate(frames)]
+        out.append(pack_frames(per_slot, dec.C, T))
+    return out, dec.C
+
+
+def he_program_chunks(n_streams: int, T: int, n_chunks: int, device,
+                      ps: bool = False):
+    """n_chunks chunks of HE-AAC v1 (he_serving_corpus) or, with ps, v2
+    (ps_serving_corpus, a spare slot a stream) traffic through
+    BatchDecoder's native host phase and core step on `device`: per chunk
+    a dict of the SBR program's inputs there (core [C,T,1024] f32, the
+    compact SBR planes `dense`, the cfg planes `cfg`, with ps the PS planes
+    `ps`), each a copy of its own.  Returns (chunks, C)."""
+    import torch
+
+    from aacjax_torch.runtime import mesh as meshlib
+    from aacjax_torch.runtime.batch import BatchDecoder
+    if ps:
+        config, corpus = ps_serving_corpus(2, 1.0, T)
+    else:
+        config, corpus = he_serving_corpus(2, 1.0, T)
+    streams = [corpus[i % len(corpus)] for i in range(n_streams)]
+    dec = BatchDecoder([config] * n_streams, chunk_frames=T,
+                       cce_slots=int(ps), device=device)
+    dev = dec.device
+    out = []
+    for k in range(n_chunks):
+        chunk = [p[k * T:(k + 1) * T] for p in streams]
+        parsed, dense, ctx = dec._he_host_phase(chunk, compact=True)
+        d = dict(core=meshlib.gather(dec._device_step(parsed), dev),
+                 dense={k: v.to(dev, copy=True) for k, v in dense.items()},
+                 cfg={k: torch.from_numpy(v.copy()).to(dev)
+                      for k, v in ctx["cfg"].items()})
+        if ps:
+            d["ps"] = {k: v.to(dev, copy=True)
+                       for k, v in ctx["ps_planes"].items()}
+        out.append(d)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, dec.C
+
+
+def encoder_program_chunks(n_streams: int, n_frames: int, n_chunks: int,
+                           bitrate: int = 128_000):
+    """n_chunks chunks of encode_serving_pcm traffic through the host prep
+    of a CPU BatchEncoder (window plan, int16 PCM with the carried frame):
+    (encoder, list of (pcm_i16 [S*2, nF*1024 + 1024] int16, w_idx
+    [S*2, nF] int64, is_short [S*2, nF] bool)), numpy arrays."""
+    from aacjax_torch.encode_batch import BatchEncoder
+    n = n_frames * FRAME
+    pcm = encode_serving_pcm(n_streams, n * n_chunks)
+    enc_ = BatchEncoder(SR, 2, bitrate, n_streams, device="cpu")
+    out = []
+    for k in range(n_chunks):
+        _, pcm_i16, w_idx, is_short, _ = enc_._prep_chunk(
+            pcm[:, k * n:(k + 1) * n])
+        out.append((pcm_i16, w_idx.astype(np.int64), is_short))
+    return enc_, out

@@ -104,12 +104,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      decorrelator launch a shard a chunk; ENC-512 on 4x1, 2 chunks, the
      share of frames byte-identical and each stream's SNR within 0.5 dB of
      the unsharded run's; graft_entry.dryrun_multichip(4).  Its launches
-     count into the kernels line.
+     count into the kernels line;
+ 10. the compiled programs (aacjax_torch/runtime/graphs.py), which phases 3
+     to 9 run as CUDA graphs: every program at its serving shape
+     (decode_spec_step at LC-512's and Main-512's chunk, decode_step,
+     sbr_apply at HE-512's, sbr_ps_apply 20- and 34-band and the dual
+     program at PS-512's, the encoder's analysis and quantize at ENC-512's)
+     and the decode step at the small shapes of the tail (C = 8, T = 64)
+     and of the synthesis route (B = 256), each captured into a pool of its
+     own: a replay held against the eager function on the same inputs (bit
+     for bit; a difference is named and held to the program's bound), the
+     kernel launches a replay counts against the eager call's, then per
+     call, eager and graph side by side, the kernel and graph launches and
+     copies the host made and the device ops (a torch.profiler trace of 10
+     calls; one graph launch a call), the host's enqueue ms, the device ms,
+     the ms by CUDA events (median of 10 runs of 3 calls), and the
+     capture ms and pool bytes of the graph.
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -2155,6 +2171,269 @@ def phase_mesh(torch) -> dict:
     return counts
 
 
+# -- phase 10: the compiled programs ------------------------------------------
+GRAPH_REPS = 10      # calls of a profiler trace of one program
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def host_ms(torch, fn, runs: int = TIMING_RUNS) -> float:
+    """Median over `runs` of the host's time to return from one call (the
+    enqueue: nothing waits for the card), each call after the card drained
+    the last."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def call_profile(torch, fn, reps: int = GRAPH_REPS) -> dict:
+    """Per call of `fn`, from a torch.profiler trace of `reps` calls after
+    a warm-up call: the kernel launches the host made (the runtime's launch
+    calls), its graph launches, its copies and fills (memcpy / memset
+    calls), the device activities (kernels, copies, fills) and their
+    summed device time (None when the trace holds none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = dict(kernels=0, graphs=0, copies=0, device_ops=0)
+    dev_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            n["device_ops"] += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            n["kernels"] += 1
+        elif e.name == "cudaGraphLaunch":
+            n["graphs"] += 1
+        elif e.name.startswith(("cudaMemcpy", "cudaMemset")):
+            n["copies"] += 1
+    out = {k: v / reps for k, v in n.items()}
+    out["device_ms"] = dev_us / reps / 1e3 if dev_us else None
+    return out
+
+
+def graph_against_eager(torch, got, want, what: str, tol) -> str:
+    """The graph's outputs against the eager call's: bit for bit, or, where
+    they differ, within `tol` (a function of (got, want, what) that checks
+    one output and returns its error).  Returns what was found."""
+    g, w = tree_leaves(got), tree_leaves(want)
+    check(len(g) == len(w), f"graphs: {what}: {len(g)} outputs against "
+          f"{len(w)}")
+    differ = []
+    for i, (a, b) in enumerate(zip(g, w)):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"graphs: {what}: "
+              f"output {i} is {a.dtype}{tuple(a.shape)} against "
+              f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            differ.append(f"output {i} ({b.dtype}{tuple(b.shape)}) within "
+                          f"{tol(a.cpu(), b.cpu(), f'{what} output {i}'):.4g}")
+    return ("bit-equal to eager" if not differ else
+            "differs from eager: " + "; ".join(differ))
+
+
+def graph_case(torch, name: str, prog, args, tol) -> None:
+    """One compiled program at one shape: captured into a pool of its own
+    (graphs.clear first), its replay held against its eager function on
+    fresh copies of the same inputs, then per call, eager against graph:
+    kernel launches and graph launches the host made, the host's enqueue
+    ms, device ms (torch.profiler), ms by CUDA events, and the capture ms
+    and pool bytes of the graph."""
+    from aacjax_torch.runtime import graphs
+    dev = tree_leaves(args)[0].device
+    graphs.clear(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = read_launches()
+    prog(*clone_tree(args))                   # warm-up and capture
+    torch.cuda.synchronize()
+    eager_counts = {k: v - before[k] for k, v in read_launches().items()}
+    entry = [e for e in graphs.entries() if e["name"] == prog.name]
+    check(len(entry) == 1, f"graphs: {name}: {len(entry)} captured programs")
+    entry = entry[0]
+    want = prog.fn(*clone_tree(args))
+    before = read_launches()
+    got = prog(*clone_tree(args))             # a replay
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in read_launches().items()}
+    check(counts == eager_counts, f"graphs: {name}: a replay counted "
+          f"{counts}, the eager call {eager_counts}")
+    held = {k: v for k, v in counts.items() if v}
+    found = graph_against_eager(torch, got, want, name, tol)
+    del got, want
+
+    def eager():
+        return prog.fn(*args)
+
+    def graph():
+        return prog(*args)
+    rows = {}
+    for route, fn in (("eager", eager), ("graph", graph)):
+        p = call_profile(torch, fn)
+        rows[route] = (f"{p['kernels']:.0f} kernel launches, "
+                       f"{p['graphs']:.0f} graph launches, "
+                       f"{p['copies']:.0f} copies from the host, "
+                       f"{p['device_ops']:.0f} device ops; host "
+                       f"{host_ms(torch, fn):.4f} ms, device "
+                       f"{fmt(p['device_ms'])}, events "
+                       f"{time_ms(torch, fn, runs=10, reps=3):.4f} ms")
+        if route == "graph":
+            check(p["graphs"] == 1, f"graphs: {name}: {p['graphs']} graph "
+                  "launches a call")
+    say(f"graphs: {name}: {found}; kernels held {held}")
+    say(f"graphs: {name}: eager: {rows['eager']}")
+    say(f"graphs: {name}: graph: {rows['graph']}; capture "
+        f"{entry['capture_s'] * 1e3:.1f} ms, pool "
+        f"{entry['pool_bytes'] / 2**20:.1f} MiB")
+
+
+def int16_tol(got, want, what: str) -> float:
+    from aacjax_torch.testing import assert_pcm_close
+    return assert_pcm_close(got.numpy(), want.numpy(), True, what)
+
+
+def core_tol(got, want, what: str) -> float:
+    """f32 within 5e-5 * max(1, max|ref|), as error / max(1, max|ref|)."""
+    return he_close(got, want, what, 5e-5)
+
+
+def phase_graphs(torch) -> None:
+    """Every compiled program at its serving shape: graph against eager on
+    the card (bit for bit expected; a difference is named and held to the
+    program's bound: int16 1 LSB on < 2% of samples, core f32 5e-5, HE f32
+    2e-4 * max(1, max|ref|)), with the numbers of graph_case; then the
+    decode step at the small shapes where host time dominated, the tail at
+    C = 8, T = 64 and the synthesis route at B = 256."""
+    import aacjax_torch
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import pipeline as P
+    from aacjax_torch.kernels import pred
+    from aacjax_torch.kernels import ps_batch as PB
+    from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime import mesh as meshlib
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    def spec_args(config, corpus, frames, cce_slots=0, n=N_STREAMS,
+                  out_int16=True):
+        per = [corpus[i % len(corpus)][:frames] for i in range(n)]
+        dec = aacjax_torch.BatchDecoder([config] * n, chunk_frames=frames,
+                                        cce_slots=cce_slots)
+        up = dec._upload_batch(dec._parse_native(per, compact=True))
+        torch.cuda.synchronize()
+        flags = dec._spec_flags({k: v for k, v in up.items()
+                                 if k.startswith("_")}, out_int16, True)
+        args = [up["_shards"].parts[0][0], dec.overlap]
+        if flags.has_pred:
+            args.append(pred.pred_state_init(dec.C, dev))
+        return P.jitted_decode_spec_step(flags), tuple(args)
+
+    from aacjax_torch.testing import adts_payloads
+    config, streams = lc_corpus()
+    prog, args = spec_args(config, [adts_payloads(d) for d in streams], CHUNK)
+    graph_case(torch, "decode_spec_step LC-512 (C=1024, T=16, compact i16, "
+               "tail, int16)", prog, args, int16_tol)
+    config, corpus = main_corpus()
+    prog, args = spec_args(config, corpus, CHUNK, out_int16=False)
+    graph_case(torch, "decode_spec_step Main-512 (C=1024, T=16, predictor, "
+               "TNS, synthesis, f32)", prog, args, core_tol)
+    chunks, _ = TI.packed_step_chunks(8, CHUNK, 1)
+    b, flags = chunks[0]
+    flags = dataclasses.replace(flags, use_pallas=True)
+    C = b["quant"].shape[0]
+    graph_case(torch, f"decode_step (python packer, C={C}, T={CHUNK}, Main "
+               "profile)", P.jitted_decode_step(flags),
+               ({k: meshlib.packed_tensor(k, v, dev) for k, v in b.items()},
+                torch.zeros((C, 1024), device=dev),
+                pred.pred_state_init(C, dev)), core_tol)
+
+    core, planes, cfg, state = TI.sbr_apply_inputs(N_STREAMS, HE_CHUNK, dev,
+                                                   compact=True)
+    graph_case(torch, "sbr_apply HE-512 (C=1024, T=8, int16)",
+               SB.jitted_sbr_apply(True), (core, planes, state, cfg),
+               int16_tol)
+    del core, planes, cfg, state
+    core, planes, ps, cfg, state, ps20 = TI.sbr_ps_apply_inputs(
+        N_STREAMS, HE_CHUNK, dev)
+    C = core.shape[0]
+    ps34 = PB.ps_state_init(C, True, dev)
+    for is34, st in ((False, ps20), (True, ps34)):
+        graph_case(torch, f"sbr_ps_apply PS-512 (C=1024, T=8, "
+                   f"{34 if is34 else 20}-band, int16)",
+                   PB.jitted_sbr_ps_apply(True, is34),
+                   (core, planes, ps, state, st, cfg), int16_tol)
+    mixed = dict(ps, slot_is34=(torch.arange(C, device=dev) % 2).float())
+    graph_case(torch, "sbr_ps_apply_dual PS-512 (C=1024, T=8, half the "
+               "slots 34-band, int16)", PB.jitted_sbr_ps_apply_dual(True),
+               (core, planes, mixed, state, ps20, ps34, cfg), int16_tol)
+    del core, planes, ps, cfg, state, ps20, ps34, mixed
+
+    from aacjax_torch.testing import encode_serving_pcm
+    enc = aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
+                                    n_streams=ENC_STREAMS)
+    pcm = encode_serving_pcm(ENC_STREAMS, ENC_CHUNK * 1024)
+    _, pcm_i16, w_idx, is_short, nF = enc._prep_chunk(pcm)
+    ins = tuple(torch.from_numpy(a).to(dev) for a in (
+        pcm_i16, w_idx.astype(np.int64), is_short))
+    analysis = enc._analysis_for(nF)
+    graph_case(torch, f"encode analysis ENC-512 ({ins[0].shape[0]} rows, "
+               f"{nF} frames)", analysis, ins, exact_tol)
+    outs = analysis.fn(*ins)
+    off, _ = enc._rate_choice(outs[3].cpu().numpy(), nF)
+    graph_case(torch, "encode quantize ENC-512", enc._quantize,
+               (outs[0], outs[1], outs[2], outs[4],
+                torch.from_numpy(off).to(dev), ins[2].reshape(-1)),
+               exact_tol)
+    del outs, ins
+
+    for C, T, what in ((8, 64, "tail"), (2, 128, "synthesis, B = 256")):
+        b = TI.spec_step_chunk(7, C, T)
+        flags = P.PipelineFlags(has_stereo=False, use_pallas=True,
+                                has_short=True)
+        graph_case(torch, f"decode_spec_step small (C={C}, T={T}, f32, "
+                   f"{what})", P.jitted_decode_spec_step(flags),
+                   ({k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                    torch.zeros((C, 1024), device=dev)), core_tol)
+    say(f"graphs: phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def exact_tol(got, want, what: str) -> float:
+    """The encoder's programs: a difference from eager is a failure (q and
+    sf feed the bitstream)."""
+    fail(f"graphs: {what}: differs from eager")
+    return 0.0
+
+
 T0 = time.perf_counter()
 
 
@@ -2210,6 +2489,7 @@ def main() -> None:
         check(launches[kernel] > 0, f"the {kernel} kernel was never launched "
               "on a main path")
         results[kernel]["launches"] = launches[kernel]
+    phase_graphs(torch)
 
     src = "aacjax_torch/kernels/csrc/"
     meta = {"tail": (src + "filterbank.cu", "aacjax/kernels/pallas_tail.py:190"),

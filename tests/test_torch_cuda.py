@@ -909,3 +909,215 @@ def test_two_card_mesh_matches_unsharded(dev):
     assert d1._ov.devices == m.row_devices
     assert torch.equal(d1.overlap, d0.overlap)
     assert d1.overlap.device == torch.device("cuda", 0)
+
+
+# -- the compiled programs (runtime/graphs.py) -------------------------------------
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def _same_bits(got, want, what):
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w), what
+    for i, (a, b) in enumerate(zip(g, w)):
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, i)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (what, i)
+
+
+def _counts():
+    return (tail.launches, synth.launches, tns.launches, pred.launches,
+            ps_decorr.launches)
+
+
+def _program_case(name, dev):
+    """(program, its eager function, call, owners, reset rows): call(fn,
+    inputs, state) -> (outputs, new state); each owner is (its chunks'
+    inputs, its first state), as two decoders or two virtual shards of a
+    card would call one program."""
+    import dataclasses
+    from aacjax_torch.kernels import pipeline as P
+    from aacjax_torch.kernels import ps_batch as PB
+    from aacjax_torch.kernels import sbr_batch as SB
+    from aacjax_torch.runtime import mesh as meshlib
+
+    def on_dev(b):
+        return {k: meshlib.packed_tensor(k, v, dev) for k, v in b.items()}
+
+    if name.startswith("decode_spec_step"):
+        kind = dict(tns=True, pred=True) if "pred" in name else dict(i16=True)
+        flags = P.PipelineFlags(has_stereo=False, use_pallas=True,
+                                out_int16="pred" not in name,
+                                spec_i16="pred" not in name,
+                                has_tns="pred" in name,
+                                has_pred="pred" in name)
+        C, T = 16, 4
+        rng = np.random.default_rng(5)
+        owners = []
+        for o in range(2):
+            ov = torch.from_numpy(rng.standard_normal((C, 1024)).astype(
+                np.float32) * 100).to(dev)
+            st = (ov, pred.pred_state_init(C, dev)) if flags.has_pred \
+                else (ov,)
+            owners.append(([on_dev(TI.spec_step_chunk(10 * o + k, C, T,
+                                                      **kind))
+                            for k in range(3)], st))
+        return (P.jitted_decode_spec_step(flags),
+                lambda b, *s: P.decode_spec_step(b, *s[:1], flags, *s[1:]),
+                lambda fn, b, s: ((o := fn(b, *s))[0], o[1:]), owners, 2)
+    if name == "decode_step":
+        chunks = [TI.packed_step_chunks(2, 4, 3, seed=s) for s in (2, 7)]
+        flags = chunks[0][0][0][1]
+        for f in (f for ch, _ in chunks for _, f in ch):
+            flags = dataclasses.replace(
+                flags, has_short=flags.has_short or f.has_short,
+                has_tns=flags.has_tns or f.has_tns)
+        flags = dataclasses.replace(flags, use_pallas=True)
+        C = chunks[0][1]
+        owners = [([on_dev(b) for b, _ in ch],
+                   (torch.zeros((C, 1024), device=dev),
+                    pred.pred_state_init(C, dev))) for ch, _ in chunks]
+        return (P.jitted_decode_step(flags),
+                lambda b, *s: P.decode_step(b, s[0], flags, s[1]),
+                lambda fn, b, s: ((o := fn(b, *s))[0], o[1:]), owners, 2)
+    if name.startswith("sbr_apply"):
+        i16 = name.endswith("i16")
+        chunks, C = TI.he_program_chunks(4, 4, 6, dev)
+        owners = [([(c["core"], c["dense"], c["cfg"]) for c in chunks[a:a + 3]],
+                   (SB.sbr_state_init(C, dev),)) for a in (0, 3)]
+        return (SB.jitted_sbr_apply(i16),
+                lambda c, d, s, g: SB.sbr_apply(c, d, s, g, i16),
+                lambda fn, x, s: ((o := fn(x[0], x[1], s[0], x[2]))[0],
+                                  o[1:]), owners, 2)
+    chunks, C = TI.he_program_chunks(4, 4, 6, dev, ps=True)
+    if name == "sbr_ps_apply_dual":
+        mask = (torch.arange(C, device=dev) % 2).float()
+        owners = [([(c["core"], c["dense"], dict(c["ps"], slot_is34=mask),
+                     c["cfg"]) for c in chunks[a:a + 3]],
+                   (SB.sbr_state_init(C, dev), PB.ps_state_init(C, False, dev),
+                    PB.ps_state_init(C, True, dev))) for a in (0, 3)]
+        return (PB.jitted_sbr_ps_apply_dual(True),
+                lambda c, d, p, s, a, b, g: PB.sbr_ps_apply_dual(
+                    c, d, p, s, a, b, g, True),
+                lambda fn, x, s: ((o := fn(*x[:3], *s, x[3]))[0], o[1:]),
+                owners, 2)
+    is34 = name.endswith("34")
+    owners = [([(c["core"], c["dense"], c["ps"], c["cfg"])
+                for c in chunks[a:a + 3]],
+               (SB.sbr_state_init(C, dev), PB.ps_state_init(C, is34, dev)))
+              for a in (0, 3)]
+    return (PB.jitted_sbr_ps_apply(True, is34),
+            lambda c, d, p, s, q, g: PB.sbr_ps_apply(c, d, p, s, q, g, True,
+                                                     is34),
+            lambda fn, x, s: ((o := fn(*x[:3], *s, x[3]))[0], o[1:]),
+            owners, 2)
+
+
+@pytest.mark.parametrize("name", ["decode_spec_step", "decode_spec_step_pred",
+                                  "decode_step", "sbr_apply",
+                                  "sbr_apply_i16", "sbr_ps_apply_20",
+                                  "sbr_ps_apply_34", "sbr_ps_apply_dual"])
+def test_graph_replays_equal_eager(dev, name):
+    """Each compiled program against its eager function on the card, bit
+    for bit, over three chunks of distinct inputs (a stale static input
+    shows), with every chunk's outputs held until the end (a replay that
+    overwrote an earlier chunk's shows), the carried state's first rows
+    zeroed in place before the last chunk (what reset_stream writes), and
+    two owners with their own state calling one graph in turn (two
+    decoders, or two virtual shards of one card).  The launch counters
+    count each replay's kernels as the eager call's."""
+    from aacjax_torch.runtime import graphs
+    prog, eager, call, owners, reset_rows = _program_case(name, dev)
+    replays = sum(e["replays"] for e in graphs.entries()
+                  if e["name"] == prog.name)
+    routes = dict(graph=prog, eager=eager)
+    state = {(o, r): _clone(s) for o, (_, s) in enumerate(owners)
+             for r in routes}
+    held = {r: [] for r in routes}
+    counted = {r: [] for r in routes}
+    for k in range(3):
+        if k == 2:
+            for st in state.values():
+                for t in _leaves(st):
+                    t[:reset_rows] = 0
+        for o, (chunks, _) in enumerate(owners):
+            for r, fn in routes.items():
+                before = _counts()
+                out, state[o, r] = call(fn, _clone(chunks[k]), state[o, r])
+                counted[r].append(tuple(b - a for a, b in
+                                        zip(before, _counts())))
+                held[r].append(out)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(held["graph"], held["eager"])):
+        _same_bits(g, w, f"{name} call {k}")
+    for o in range(len(owners)):
+        _same_bits(state[o, "graph"], state[o, "eager"], f"{name} state {o}")
+    assert counted["graph"] == counted["eager"]
+    now = sum(e["replays"] for e in graphs.entries()
+              if e["name"] == prog.name)
+    assert now - replays >= 3 * len(owners) - 1
+
+
+def test_encoder_graphs_equal_eager(dev):
+    """The encoder's analysis and quantize programs against their eager
+    functions on the card, bit for bit, over three chunks of two owners,
+    every output held until the end."""
+    from aacjax_torch import encode_batch as EB
+    from aacjax_torch.runtime import graphs
+    enc, chunks = TI.encoder_program_chunks(4, 4, 6)
+    nF = 4
+    psy = enc._psy_key()
+    prog = EB._jitted_analysis(enc._si, enc._cutoff_bin, EB.FRAME, nF, psy)
+    eager = EB._analysis_fn(enc._si, enc._cutoff_bin, EB.FRAME, nF, psy, dev)
+    quant, quant_eager = EB._jitted_quantize(enc._w8), EB._quantize_fn(enc._w8)
+    held = {"graph": [], "eager": []}
+    n0 = {e["name"]: e["replays"] for e in graphs.entries()}
+    for k in range(3):
+        for o in (0, 3):
+            ins = [torch.from_numpy(a).to(dev) for a in chunks[o + k]]
+            outs = {r: fn(*_clone(ins)) for r, fn in
+                    (("graph", prog), ("eager", eager))}
+            off, _ = enc._rate_choice(outs["eager"][3].cpu().numpy(), nF)
+            q_in = (*[outs["eager"][i] for i in (0, 1, 2, 4)],
+                    torch.from_numpy(off).to(dev), ins[2].reshape(-1))
+            for r, fn in (("graph", quant), ("eager", quant_eager)):
+                held[r].append((outs[r], fn(*_clone(q_in))))
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(held["graph"], held["eager"])):
+        _same_bits(g, w, f"encoder call {k}")
+    now = {e["name"]: e["replays"] for e in graphs.entries()}
+    for name in ("encode_analysis", "encode_quantize"):
+        assert now[name] - n0.get(name, 0) >= 5, name
+
+
+def test_graph_capture_failure_raises(dev):
+    """A program that synchronises with the host cannot be captured: the
+    call raises (its warm-up ran, its capture failed), nothing is kept, and
+    the device goes on working."""
+    from aacjax_torch.runtime import graphs
+    prog = graphs.Program("host_sync", lambda x: x * float(x.sum()))
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="host_sync: CUDA graph "
+                                                "capture failed"):
+            prog(x)
+    assert "host_sync" not in [e["name"] for e in graphs.entries()]
+    torch.cuda.synchronize()
+    assert float((torch.ones(3, device=dev) * 2).sum()) == 6.0
