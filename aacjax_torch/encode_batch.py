@@ -9,11 +9,13 @@ Division of labour per chunk of S streams x nF frames:
        runs the windowed forward MDCT as fp32 matrix products (long
        windows selected by plan index, EIGHT_SHORT through the 8 x S
        sub-products), band energies as products with the band matrix, ATH
-       + directional psy spreading (a loop over the ~49 bands, in the
-       reference's order), the analytic base-scalefactor model refined by
-       two measured-distortion quantization trials, and an exact book-11
-       Huffman cost (pair-LUT gather + signs + escapes) over the static
-       grid of rate offsets OFF_GRID -> est_bits [N, K].
+       + directional psy spreading (the reference's two scans over the
+       bands, one CUDA kernel on the card: kernels/enc_scans.py), the
+       analytic base-scalefactor model refined by two measured-distortion
+       quantization trials, and an exact book-11 Huffman cost (pair LUT +
+       signs + escapes) over the static grid of rate offsets OFF_GRID ->
+       est_bits [N, K] (the reference's scan over the offsets, one CUDA
+       kernel on the card).
     2. QUANTIZE (`_quantize_fn`): mid-tread quantization at each
        channel-frame's chosen offset -> the coded region of q as int16
        [N, W] + per-band scalefactors int16 [N, nb].
@@ -60,10 +62,10 @@ import torch
 from aacjax_torch import tables
 from aacjax_torch.encode import (EIGHT_SHORT, PsyParams,
                                  _analysis_matrix_cached, _ath_energy,
-                                 _COST_LUTS, bands_books_and_bits,
+                                 bands_books_and_bits,
                                  detect_transients, window_sequence_plan)
 from aacjax_torch.host.asc import make_asc, parse_asc
-from aacjax_torch.kernels import _build
+from aacjax_torch.kernels import _build, enc_scans
 from aacjax_torch.runtime import graphs
 from aacjax_torch.runtime import mesh as meshlib
 
@@ -200,39 +202,23 @@ def _analysis_fn(sample_index: int, cutoff_bin: int, frame: int,
     ath_l, ath_s = on_dev(arr["ath_l"]), on_dev(arr["ath_s"])
     coded_l = on_dev(arr["coded_l"], torch.bool)
     coded_s = on_dev(arr["coded_s"], torch.bool)
-    lut11 = on_dev(_COST_LUTS[11][0].astype(np.float32).reshape(-1))
 
     # coded-region extents (both multiples of 4, so Huffman pairs and
     # quads never straddle the slice boundaries)
     cut_l = int(arr["ptr_l"][-1])
     cut_s = int(arr["cfg"].swb_offsets_short[arr["max_sfb_s"]])
     Pe = max(cut_l, 8 * cut_s)
-    # band of each coded-region bin (nb: padding, or a bin past the cutoff)
-    bbe_l = on_dev(np.concatenate([np.asarray(arr["bb_l"])[:cut_l],
-                                   np.full(Pe - cut_l, nb, np.int64)]),
-                   torch.int64)
-    bbe_s = on_dev(np.concatenate([
-        np.asarray(arr["bb_s"]).reshape(8, S)[:, :cut_s].reshape(-1),
-        np.full(Pe - 8 * cut_s, nb, np.int64)]), torch.int64)
+    # band of each coded-region bin (nb: padding, or a bin past the
+    # cutoff), long rows' then short rows'
+    regions = on_dev(np.stack([
+        np.concatenate([np.asarray(arr["bb_l"])[:cut_l],
+                        np.full(Pe - cut_l, nb, np.int64)]),
+        np.concatenate([
+            np.asarray(arr["bb_s"]).reshape(8, S)[:, :cut_s].reshape(-1),
+            np.full(Pe - 8 * cut_s, nb, np.int64)])]), torch.int64)
+    offsets = tuple(OFF_GRID.tolist())
     log2_8191 = float((4.0 / 3.0) * np.log2(8191.0))
     log2_zero = float((4.0 / 3.0) * np.log2(0.5946))
-
-    def spread(e):
-        """Directional masking spread: a max-recurrence up the bands, then
-        one down, each step carry * rolloff then the maximum, in the
-        reference's order (so with its roundings)."""
-        eT = e.t().contiguous()                            # [nb, N]
-        eu = torch.empty_like(eT)
-        tmp = torch.zeros_like(eT[0])
-        for k in range(eT.shape[0]):
-            torch.maximum(eT[k], tmp, out=eu[k])
-            torch.mul(eu[k], up, out=tmp)
-        ed = torch.empty_like(eT)
-        tmp.zero_()
-        for k in range(eT.shape[0] - 1, -1, -1):
-            torch.maximum(eu[k], tmp, out=ed[k])
-            torch.mul(ed[k], down, out=tmp)
-        return ed.t() * smr
 
     def quant(x, sf_bin):
         gain = torch.exp2((sf_bin - 100.0) * 0.25)
@@ -270,7 +256,7 @@ def _analysis_fn(sample_index: int, cutoff_bin: int, frame: int,
 
         e = band_reduce(coefs * coefs)
         ath = torch.where(sel, ath_s, ath_l)
-        thr = torch.maximum(spread(e), ath)
+        thr = torch.maximum(enc_scans.spread(e, up, down, smr), ath)
         coded = torch.where(sel, coded_s, coded_l)
 
         absc = coefs.abs()
@@ -309,31 +295,8 @@ def _analysis_fn(sample_index: int, cutoff_bin: int, frame: int,
             coefs.reshape(N, 8, S)[:, :, :cut_s].reshape(N, 8 * cut_s),
             (0, Pe - 8 * cut_s))
         t34 = torch.pow(torch.where(sel, ce_s, ce_l).abs(), 0.75)  # [N, Pe]
-        region = torch.where(sel, bbe_s, bbe_l)                    # [N, Pe]
-        b_b = with_fill(base, 255.0).gather(1, region)
-        f_b = with_fill(fit_sf, 255.0).gather(1, region)
-        z_b = with_fill(zero_sf, 0.0).gather(1, region)
-
-        est = torch.empty((N, len(OFF_GRID)), dtype=torch.float32,
-                          device=coefs.device)
-        for k, o in enumerate(OFF_GRID.tolist()):
-            sfb = torch.maximum(b_b + o, f_b).clamp_(max=255.0)
-            c = torch.floor(t34 * torch.exp2((100.0 - sfb) * 0.1875)
-                            + 0.4054)
-            a = torch.clamp(c, max=8191.0)
-            # sfb < zero_sf  <=>  the band's max magnitude quantizes to >= 1
-            pair_nz = (sfb < z_b)[:, 0::2]
-            p = torch.clamp(a, max=16.0).to(torch.int64)
-            lut_bits = torch.where(pair_nz, lut11[p[:, 0::2] * 17
-                                                  + p[:, 1::2]], 0.0).sum(1)
-            signs = (a > 0).sum(1)
-            nbits = torch.clamp(torch.floor(torch.log2(
-                torch.clamp(a, min=1.0))), min=4.0)
-            extra = torch.where(a >= 16.0, 2.0 * nbits - 3.0, 0.0).sum(1)
-            side_nz = (torch.maximum(base + o, fit_sf).clamp_(max=255.0)
-                       < zero_sf)
-            side = 6.0 * side_nz.sum(1).to(torch.float32)
-            est[:, k] = (lut_bits + signs) + extra + side
+        est = enc_scans.rate_cost(t34, is_short.reshape(N), regions, base,
+                                  fit_sf, zero_sf, offsets)
         return coefs, base, fit_sf, est, bin_band
 
     return analysis

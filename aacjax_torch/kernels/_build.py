@@ -31,8 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream are
-# c_void_p, every int is c_int; each returns cudaGetLastError())
+# c_void_p, every int is c_int, every float c_float; each returns
+# cudaGetLastError())
 _SIGNATURES = {
     "aacjax_tail": [_P, _P, _I,                 # spec, scale, spec_i16
                     _P, _P, _P, _P, _P, _P,     # f/s/shape/prev idx, short, valid
@@ -57,6 +59,12 @@ _SIGNATURES = {
                               _P, _P, _P,           # peak, psm, pdf out
                               _I, _I, _I, _I,       # B, S, nb, npar
                               _I, _I, _I, _P],      # nap, sdb, M, stream
+    "aacjax_enc_spread": [_P, _P, _I, _I,       # e, out, N, nb
+                          _F, _F, _F, _P],      # up, down, smr, stream
+    "aacjax_enc_rate_cost": [_P, _P, _P,        # t34, is_short, regions
+                             _P, _P, _P,        # base, fit_sf, zero_sf
+                             _P, _P, _P, _P,    # lut, exp2 table, offsets, est
+                             _I, _I, _I, _I, _P],   # N, Pe, nb, K, stream
 }
 
 

@@ -105,11 +105,14 @@ def _unflatten(spec, leaves):
 
 def _count(held: collections.Counter) -> None:
     """Add a replay's kernel launches to the wrappers' counters."""
-    from aacjax_torch.kernels import pred, ps_decorr, synth, tail, tns
-    mods = dict(aacjax_tail=tail, aacjax_synth=synth, aacjax_tns=tns,
-                aacjax_pred=pred, aacjax_ps_decorrelate=ps_decorr)
+    from aacjax_torch.kernels import (enc_scans, pred, ps_decorr, synth,
+                                      tail, tns)
+    counters = dict(aacjax_tail=tail, aacjax_synth=synth, aacjax_tns=tns,
+                    aacjax_pred=pred, aacjax_ps_decorrelate=ps_decorr,
+                    aacjax_enc_spread=enc_scans.spread_count,
+                    aacjax_enc_rate_cost=enc_scans.rate_cost_count)
     for name, n in held.items():
-        mods[name].launches += n
+        counters[name].launches += n
 
 
 def _cuda(device) -> torch.device:

@@ -994,3 +994,87 @@ def encoder_program_chunks(n_streams: int, n_frames: int, n_chunks: int,
             pcm[:, k * n:(k + 1) * n])
         out.append((pcm_i16, w_idx.astype(np.int64), is_short))
     return enc_, out
+
+
+def enc_scans_random(seed: int, N: int, sample_rate: int = SR,
+                     cutoff_bin: int = 542, short_share: float = 0.25
+                     ) -> dict:
+    """Random inputs of the batched encoder's two scans
+    (kernels/enc_scans.py) at the band layout of one configuration
+    (encode_batch._arrangement; the default is ENC-512's, 44.1 kHz at
+    cutoff bin 542): band energies `e` f32 [N, nb] >= 0 with zero bands and
+    zero rows, and the grid's inputs as the analysis program makes them --
+    `t34` f32 [N, Pe] (0 on padding bins), `is_short` bool [N], `regions`
+    int64 [2, Pe], and integer `base` / `fit_sf` / `zero_sf` f32 [N, nb]:
+    fit_sf >= 0, zero_sf about 73 above it, base between them (255 for
+    bands a row type does not code; silent bands as the analysis leaves
+    them, fit 0, zero -294, base -294), t34 scaled so that the offsets
+    quantize from 0 up to the 8191 clamp.  Numpy arrays."""
+    from aacjax_torch import tables
+    from aacjax_torch.encode_batch import FRAME as F, _arrangement
+    si = int(np.argmin(np.abs(tables.SAMPLE_RATES[:12] - sample_rate)))
+    arr = _arrangement(si, cutoff_bin, F)
+    nb, S = arr["nb"], F // 8
+    cut_l = int(arr["ptr_l"][-1])
+    cut_s = int(arr["cfg"].swb_offsets_short[arr["max_sfb_s"]])
+    Pe = max(cut_l, 8 * cut_s)
+    regions = np.stack([
+        np.concatenate([arr["bb_l"][:cut_l], np.full(Pe - cut_l, nb)]),
+        np.concatenate([arr["bb_s"].reshape(8, S)[:, :cut_s].reshape(-1),
+                        np.full(Pe - 8 * cut_s, nb)])]).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    is_short = rng.random(N) < short_share
+    e = (np.exp(rng.normal(0.0, 3.0, (N, nb))) * 1e4).astype(np.float32)
+    e[rng.random((N, nb)) < 0.1] = 0.0
+    e[rng.random(N) < 0.05] = 0.0
+    fit = rng.integers(0, 130, (N, nb)).astype(np.float32)
+    zero = fit + rng.integers(70, 76, (N, nb))
+    base = fit + np.floor(rng.random((N, nb)) * (zero - fit + 1))
+    silent = rng.random((N, nb)) < 0.08
+    fit[silent], zero[silent], base[silent] = 0.0, -294.0, -294.0
+    coded = np.where(is_short[:, None], arr["coded_s"], arr["coded_l"])
+    base = np.where(coded, base, 255.0).astype(np.float32)
+    # per bin: a magnitude the band's base quantizes to ~0-30
+    region = np.where(is_short[:, None], regions[1], regions[0])
+    b_bin = np.concatenate([base, np.full((N, 1), 255.0)], 1)
+    b_bin = np.take_along_axis(b_bin, region, 1)
+    amp = np.exp(rng.normal(0.5, 1.5, (N, Pe))) * (rng.random((N, Pe)) > 0.2)
+    t34 = amp * np.exp2((np.minimum(b_bin, 250.0) - 100.0) * 0.1875)
+    t34[(region == nb) | (b_bin < 0)] = 0.0
+    return dict(e=e, t34=t34.astype(np.float32), is_short=is_short,
+                regions=regions, base=base, fit_sf=fit.astype(np.float32),
+                zero_sf=zero.astype(np.float32), nb=nb, Pe=Pe)
+
+
+def enc_scans_inputs(enc, pcm: np.ndarray, device) -> tuple[dict, tuple]:
+    """One chunk `pcm` [S, n, ch] through `enc`'s host prep and the eager
+    analysis program (`encode_batch._analysis_fn`) on `device`, with the
+    two scans' wrappers recording what they are given and return: ({
+    "spread": (args, out), "rate_cost": (args, out)}, the analysis's
+    outputs).  The wrappers are restored before it returns."""
+    import torch
+
+    from aacjax_torch import encode_batch as EB
+    from aacjax_torch.kernels import enc_scans
+    _, pcm_i16, w_idx, is_short, nF = enc._prep_chunk(pcm)
+    fn = EB._analysis_fn(enc._si, enc._cutoff_bin, EB.FRAME, nF,
+                         enc._psy_key(), torch.device(device))
+    seen: dict = {}
+    wrappers = {name: getattr(enc_scans, name)
+                for name in ("spread", "rate_cost")}
+
+    def recording(name):
+        def call(*args):
+            seen[name] = (args, wrappers[name](*args))
+            return seen[name][1]
+        return call
+
+    try:
+        for name in wrappers:
+            setattr(enc_scans, name, recording(name))
+        outs = fn(*(torch.from_numpy(a).to(device) for a in (
+            pcm_i16, w_idx.astype(np.int64), is_short)))
+    finally:
+        for name, fn_ in wrappers.items():
+            setattr(enc_scans, name, fn_)
+    return seen, outs

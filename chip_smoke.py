@@ -21,7 +21,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      a serving-like mix read from compact int16 spectra and the parser's
      packed filter planes.  The Main-profile predictor runs at C = 1024,
      T = 16 (the serving chunk) and C = 8, T = 64 on inputs with every
-     mode and reset, and must equal its plain version bit for bit;
+     mode and reset, and must equal its plain version bit for bit, as must
+     the batched encoder's two scan kernels (the psy spread and the
+     rate-cost grid) on the intermediates of one ENC-512 chunk (N = 16384)
+     and of a mono 32 kHz chunk with an odd N;
   3. the serving slice at full width: 512 concurrent AAC-LC stereo streams
      (44.1 kHz, ~200 kbps; the reference's headline corpus),
      chunk_frames=16, through BatchDecoder.decode_pipelined, five runs --
@@ -87,8 +90,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      chunks of 16 frames, a warm-up chunk and 2 runs of encode_pipelined
      over 4 chunks -- encode_aggregate_realtime_x per run and their median,
      the stage split, the pipelined payloads against sequential encode_chunk
-     byte for byte, one chunk's analysis and quantize against the CPU, the
-     device programs' time, launches, costliest ops and peak memory; then
+     byte for byte, the encoder's scan kernels launched once a chunk each,
+     one chunk's analysis and quantize against the CPU, the device
+     programs' time, launches, costliest ops and peak memory; then
      every stream decoded on the card through decode_pipelined (the tail
      kernel), its SNR against its source held to 32 of the streams encoded
      and decoded on the CPU route (within 0.5 dB);
@@ -101,8 +105,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      Main-512 on 2x2 (the predictor's state handed over frame shards, TNS
      per shard) within 5e-5 * max|ref|; HE-512 and PS-512 on 4x1, 2 chunks,
      f32 within 1e-5 * max(1, max|ref|) and int16 within the HE bound, one
-     decorrelator launch a shard a chunk; ENC-512 on 4x1, 2 chunks, the
-     share of frames byte-identical and each stream's SNR within 0.5 dB of
+     decorrelator launch a shard a chunk; ENC-512 on 4x1, 2 chunks, every
+     frame byte-identical to the unsharded run, one launch of each encoder
+     scan kernel a shard a chunk, and each stream's SNR within 0.5 dB of
      the unsharded run's; graft_entry.dryrun_multichip(4).  Its launches
      count into the kernels line;
  10. the compiled programs (aacjax_torch/runtime/graphs.py), which phases 3
@@ -275,7 +280,8 @@ def ptxas_lines(log: str) -> list[str]:
             k = re.search(r"filterbank_kernelILb(\d)ELi(\d)E", name)
             t = re.search(r"(tns_(?:filter|prepare)_kernel)ILi(\d+)ELb(\d)E",
                           name)
-            plain = [n for n in ("pred_kernel", "ps_decorrelate_kernel")
+            plain = [n for n in ("pred_kernel", "ps_decorrelate_kernel",
+                                 "enc_spread_kernel", "enc_rate_cost_kernel")
                      if n in name]
             kind = (f"filterbank_kernel<spec_i16={k[1]}, mode={k[2]}>" if k
                     else f"{t[1]}<F={t[2] if t[2] != '0' else 'any'}, "
@@ -392,6 +398,7 @@ def phase_kernels(torch, dev) -> dict:
     phase_tns_kernel(torch, dev, results)
     phase_pred_kernel(torch, dev, results)
     phase_ps_decorr_kernel(torch, dev, results)
+    phase_enc_scans_kernels(torch, dev, results)
     return results
 
 
@@ -644,6 +651,90 @@ def phase_ps_decorr_kernel(torch, dev, results: dict) -> None:
             "decorrelation")
 
 
+def phase_enc_scans_kernels(torch, dev, results: dict) -> None:
+    """The batched encoder's two scan kernels (kernels/enc_scans.py) against
+    their plain versions, bit for bit, on the intermediates of real chunks
+    through the eager analysis program: one ENC-512 chunk (512 stereo
+    streams of 16 frames at 44.1 kHz and 128 kbps: N = 16384 rows, nb = 36,
+    Pe = 544) and a mono 32 kHz chunk at 64 kbps with an odd N (37 streams
+    of 3 frames: N = 111, nb = 43, Pe = 768); at ENC-512's shape, the one
+    `results` keeps, each kernel's time per call and device time, its
+    bound and its plain version's time (one call of the Python loop)."""
+    import aacjax_torch
+    from aacjax_torch import testing as TI
+    from aacjax_torch.kernels import enc_scans as ES
+    from aacjax_torch.testing import encode_serving_pcm
+
+    def bits_equal(a, b):
+        return a.shape == b.shape and bool(torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+    def plain_ms(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        fn()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    cases = (("ENC-512", aacjax_torch.BatchEncoder(
+                 44100, 2, ENC_BITRATE, n_streams=ENC_STREAMS),
+              encode_serving_pcm(ENC_STREAMS, ENC_CHUNK * 1024)),
+             ("mono 32 kHz, N=111", aacjax_torch.BatchEncoder(
+                 32000, 1, 64_000, n_streams=37),
+              encode_serving_pcm(37, 3 * 1024)[:, :, :1]))
+    for name, enc, pcm in cases:
+        seen, _ = TI.enc_scans_inputs(enc, pcm, dev)
+        sp_args = seen["spread"][0]
+        t34, is_short, regions, base, fit_sf, zero_sf, offsets = \
+            seen["rate_cost"][0]
+        region = torch.where(is_short[:, None], regions[1], regions[0])
+        lut = ES._constants(offsets, dev)["lut"]
+        rc_ref = (t34, region, base, fit_sf, zero_sf, lut, offsets)
+        (N, nb), (Pe, K) = base.shape, (t34.shape[1], len(offsets))
+        for key, run, ref in (
+                ("enc_spread", lambda: ES.spread(*sp_args),
+                 lambda: ES.spread_ref(*sp_args)),
+                ("enc_rate_cost", lambda: ES.rate_cost(*seen["rate_cost"][0]),
+                 lambda: ES.rate_cost_ref(*rc_ref))):
+            got, want = run(), ref()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(bits_equal(got, want), f"{key} {name}: kernel and plain "
+                  f"version differ (max err {err})")
+            check(bool(torch.isfinite(got).all()), f"{key}: non-finite output")
+            line = (f"kernel {key} {name} (N={N}, nb={nb}"
+                    + (f", Pe={Pe}, K={K}" if key == "enc_rate_cost" else "")
+                    + "): bit-equal to the plain version")
+            if name == "ENC-512":
+                ms = time_ms(torch, run, reps=REPS)
+                dms = device_ms(torch, run, f"{key}_kernel")
+                plain = plain_ms(ref)
+                if key == "enc_spread":
+                    # e in, the spread out; per element two maxima, two
+                    # products and the smr product
+                    moved = 2 * N * nb * 4
+                    ops = 5.0 * N * nb
+                else:
+                    # t34, the row flags, the maps, three band planes, the
+                    # tables in, est out; ~12 operations a bin and offset
+                    # (product, add, floor, clamp, sign, escape test, pair
+                    # index, sums) and 4 a band and offset
+                    moved = nbytes(t34, is_short, regions, base, fit_sf,
+                                   zero_sf, lut, got) + 4 * (256 + K)
+                    ops = 12.0 * N * Pe * K + 4.0 * N * (nb + 1) * K
+                b_ms, b_by = bound(moved, ops)
+                results[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                                    plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+                line += (f"; {ms:.4f} ms per call (device {fmt(dms)}), plain "
+                         f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                         f"{moved / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+                         "operations); no PyTorch call computes it")
+            say(line)
+
+
 def parse_threads(n_streams: int) -> int:
     """The thread count the native batch parse resolves to for n_streams
     streams, by the rule of native/aacparse.cc (aacparse_batch):
@@ -683,13 +774,18 @@ def stage_split(torch, dec, chunk, out_int16: bool, runs: int = 5):
     return tuple(float(v) for v in np.median(np.array(splits), axis=0))
 
 
-KERNELS = ("tail", "synthesis", "tns", "pred", "ps_decorr")
+KERNELS = ("tail", "synthesis", "tns", "pred", "ps_decorr", "enc_spread",
+           "enc_rate_cost")
+ENC_KERNELS = ("enc_spread", "enc_rate_cost")
 
 
 def _kernel_modules() -> dict:
-    from aacjax_torch.kernels import pred, ps_decorr, synth, tail, tns
+    """Each kernel's launch counter (`.launches`): its wrapper's module, or
+    for the encoder's two scans their counters in kernels/enc_scans.py."""
+    from aacjax_torch.kernels import enc_scans, pred, ps_decorr, synth, tail, tns
     return dict(tail=tail, synthesis=synth, tns=tns, pred=pred,
-                ps_decorr=ps_decorr)
+                ps_decorr=ps_decorr, enc_spread=enc_scans.spread_count,
+                enc_rate_cost=enc_scans.rate_cost_count)
 
 
 def reset_launches() -> None:
@@ -1820,8 +1916,9 @@ def phase_encode_serving(torch) -> dict:
     run decoded on the card through decode_pipelined (the tail kernel),
     its SNR against its source held to the same streams encoded and
     decoded on the CPU route: within 0.5 dB of each of 32 streams, and no
-    stream below their minimum by more than 0.5 dB.  Returns the decode's
-    launches."""
+    stream below their minimum by more than 0.5 dB.  Returns the launches
+    of the encode_pipelined runs (one of each encoder scan kernel a chunk)
+    and of the decode."""
     import aacjax_torch
     from aacjax_torch.host import native_write
     from aacjax_torch.testing import encode_serving_pcm
@@ -1843,6 +1940,7 @@ def phase_encode_serving(torch) -> dict:
         f"{'native' if warm._native_write else 'python'}; warm-up chunk "
         f"{time.perf_counter() - t0:.2f} s")
     rtx, runs, stats = [], [], []
+    reset_launches()
     for _ in range(ENC_RUNS):
         enc = encoder()
         t0 = time.perf_counter()
@@ -1852,6 +1950,12 @@ def phase_encode_serving(torch) -> dict:
         rtx.append(audio_s / wall)
         runs.append(outs)
         stats.append(dict(enc.stats))
+    enc_counts = read_launches()
+    for kernel in ENC_KERNELS:
+        check(enc_counts[kernel] == ENC_RUNS * ENC_CHUNKS, f"ENC-512: "
+              f"{enc_counts[kernel]} {kernel} launches over {ENC_RUNS} runs "
+              f"of {ENC_CHUNKS} chunks, expected one a chunk")
+    say(f"ENC-512: launches over the {ENC_RUNS} runs {enc_counts}")
     kbps = (sum(len(p) for o in runs[0] for s in o for p in s) * 8
             / (ENC_CHUNKS * L / 44100) / 1000 / ENC_STREAMS)
     say(f"ENC-512: encode_aggregate_realtime_x {float(np.median(rtx)):.1f} "
@@ -1914,7 +2018,7 @@ def phase_encode_serving(torch) -> dict:
         f"each within {worst:.4f} dB of the card's; {same} of "
         f"{len(sub) * ENC_CHUNKS * ENC_CHUNK} of their frames byte-identical "
         "to the card's")
-    return counts
+    return add_counts(counts, enc_counts)
 
 
 # -- phase 9: the mesh --------------------------------------------------------
@@ -2093,8 +2197,9 @@ def mesh_encode(torch, devs) -> dict:
     """ENC-512 on a 4x1 mesh (256 channel rows a shard), MESH_CHUNKS chunks
     of encode_pipelined after a warm-up chunk on each side, against the
     unsharded card run: every frame byte-identical (the rows are
-    independent), and each stream's decoded SNR beside the unsharded
-    stream's.  Returns the decodes' launches."""
+    independent), one launch of each encoder scan kernel a chunk a shard,
+    and each stream's decoded SNR beside the unsharded stream's.  Returns
+    the encoders' and the decodes' launches."""
     import aacjax_torch
     from aacjax_torch.runtime import mesh as meshlib
     from aacjax_torch.testing import encode_serving_pcm
@@ -2103,6 +2208,7 @@ def mesh_encode(torch, devs) -> dict:
     chunks = [pcm[:, k * L:(k + 1) * L] for k in range(MESH_CHUNKS)]
     m41 = meshlib.make_mesh(4, 1, devices=devs)
     runs, walls = [], []
+    reset_launches()
     for mesh in (None, m41):
         enc = aacjax_torch.BatchEncoder(44100, 2, ENC_BITRATE,
                                         n_streams=ENC_STREAMS, mesh=mesh)
@@ -2113,6 +2219,11 @@ def mesh_encode(torch, devs) -> dict:
         t0 = time.perf_counter()
         runs.append(list(enc.encode_pipelined(iter(chunks))))
         walls.append(time.perf_counter() - t0)
+    counts = read_launches()
+    want = (1 + MESH_CHUNKS) * (1 + MESH_SHARDS)   # one a chunk a shard
+    for kernel in ENC_KERNELS:
+        check(counts[kernel] == want, f"enc-512 4x1: {counts[kernel]} "
+              f"{kernel} launches, expected {want}")
     same = total = 0
     for k in range(MESH_CHUNKS):
         for a, b in zip(runs[0][k], runs[1][k]):
@@ -2120,7 +2231,7 @@ def mesh_encode(torch, devs) -> dict:
             total += len(a)
     check(same == total, f"enc-512 4x1: {total - same} of {total} frames "
           "differ from the unsharded card run")
-    counts, snrs = {}, []
+    snrs = []
     for outs in runs:
         payloads = [[p for o in outs for p in o[s]]
                     for s in range(ENC_STREAMS)]
@@ -2498,7 +2609,10 @@ def main() -> None:
             "tns": (src + "tns.cu", "aacjax/kernels/pipeline.py:334"),
             "pred": (src + "pred.cu", "aacjax/kernels/pipeline.py:219"),
             "ps_decorr": (src + "ps_decorr.cu",
-                          "aacjax/kernels/ps_batch.py:366")}
+                          "aacjax/kernels/ps_batch.py:366"),
+            "enc_spread": (src + "enc_scans.cu", "aacjax/encode_batch.py:176"),
+            "enc_rate_cost": (src + "enc_scans.cu",
+                              "aacjax/encode_batch.py:364")}
     keys = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=k, route="cuda", source=meta[k][0],

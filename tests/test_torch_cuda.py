@@ -15,8 +15,9 @@ by FFT, the plain versions by the reference's dense product.  TNS is held
 to 1e-6 * max|x|: the float-float form exists for that accuracy (the kernel
 keeps the plain version's roundings, so the two are in fact equal up to the
 sign of a zero).  The predictor kernel is held to its plain version bit for
-bit, and so is the fused Parametric Stereo decorrelator kernel; the HE and
-PS routes are held to the CPU.  This file imports no JAX.
+bit, and so are the fused Parametric Stereo decorrelator kernel and the
+batched encoder's two scan kernels (the psy spread and the rate-cost grid);
+the HE and PS routes are held to the CPU.  This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ import torch
 
 import aacjax_torch
 from aacjax_torch import testing as TI
-from aacjax_torch.kernels import pred, ps_decorr, synth, tail, tns
+from aacjax_torch.kernels import enc_scans, pred, ps_decorr, synth, tail, tns
 
 pytestmark = pytest.mark.cuda
 
@@ -944,7 +945,8 @@ def _same_bits(got, want, what):
 
 def _counts():
     return (tail.launches, synth.launches, tns.launches, pred.launches,
-            ps_decorr.launches)
+            ps_decorr.launches, enc_scans.spread_count.launches,
+            enc_scans.rate_cost_count.launches)
 
 
 def _program_case(name, dev):
@@ -1121,3 +1123,110 @@ def test_graph_capture_failure_raises(dev):
     assert "host_sync" not in [e["name"] for e in graphs.entries()]
     torch.cuda.synchronize()
     assert float((torch.ones(3, device=dev) * 2).sum()) == 6.0
+
+
+# -- the batched encoder's scan kernels --------------------------------------------
+def _psy_rolloffs():
+    """(up, down, smr) as the analysis program makes them from PsyParams."""
+    from aacjax_torch.encode import PsyParams
+    p = PsyParams()
+    return tuple(float(np.float32(10.0 ** (-db / 10.0))) for db in (
+        p.spread_up_db, p.spread_down_db, p.smr_db))
+
+
+# (N, sample rate, cutoff bin, share of short rows): ENC-512's chunk, and two
+# odd shapes (a mono 32 kHz chunk of 37 streams x 3 frames; one short row at
+# 48 kHz, whose long rows would pad)
+ENC_SCAN_SHAPES = [(16384, 44100, 542, 0.25), (111, 32000, 746, 0.3),
+                   (1, 48000, 826, 1.0)]
+
+
+@pytest.mark.parametrize("N,sample_rate,cutoff_bin,short_share",
+                         ENC_SCAN_SHAPES)
+def test_enc_spread_kernel_equals_plain_bit_for_bit(dev, N, sample_rate,
+                                                    cutoff_bin, short_share):
+    d = TI.enc_scans_random(N, N, sample_rate, cutoff_bin, short_share)
+    e = torch.from_numpy(d["e"]).to(dev)
+    before = enc_scans.spread_count.launches
+    got = enc_scans.spread(e, *_psy_rolloffs())
+    assert enc_scans.spread_count.launches == before + 1
+    want = enc_scans.spread_ref(e, *_psy_rolloffs()).contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("N,sample_rate,cutoff_bin,short_share",
+                         ENC_SCAN_SHAPES)
+def test_enc_rate_cost_kernel_equals_plain_bit_for_bit(dev, N, sample_rate,
+                                                       cutoff_bin,
+                                                       short_share):
+    from aacjax_torch import encode_batch as EB
+    d = TI.enc_scans_random(N, N, sample_rate, cutoff_bin, short_share)
+    args = [torch.from_numpy(d[k]).to(dev) for k in (
+        "t34", "is_short", "regions", "base", "fit_sf", "zero_sf")]
+    offsets = tuple(EB.OFF_GRID.tolist())
+    before = enc_scans.rate_cost_count.launches
+    got = enc_scans.rate_cost(*args, offsets)
+    assert enc_scans.rate_cost_count.launches == before + 1
+    t34, is_short, regions = args[:3]
+    region = torch.where(is_short[:, None], regions[1], regions[0])
+    want = enc_scans.rate_cost_ref(
+        t34, region, *args[3:], enc_scans._constants(offsets, dev)["lut"],
+        offsets)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_enc_scan_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    e = torch.zeros((4, 36), device=dev)
+    with pytest.raises(ValueError, match="nb"):
+        enc_scans.spread(torch.zeros((4, 64), device=dev), 0.5, 0.5, 0.5)
+    with pytest.raises(TypeError, match="dtype"):
+        enc_scans.spread(e.double(), 0.5, 0.5, 0.5)
+    d = TI.enc_scans_random(0, 4)
+    args = [torch.from_numpy(d[k]).to(dev) for k in (
+        "t34", "is_short", "regions", "base", "fit_sf", "zero_sf")]
+    with pytest.raises(ValueError, match="Pe even"):
+        enc_scans.rate_cost(args[0][:, :-1].contiguous(), *args[1:], (0.0,))
+    with pytest.raises(ValueError, match="offsets"):
+        enc_scans.rate_cost(*args, tuple([0.0] * 33))
+    with pytest.raises(ValueError, match="regions"):
+        enc_scans.rate_cost(*args[:2], args[2][:, :-2].contiguous(),
+                            *args[3:], (0.0,))
+
+
+def test_analysis_replays_count_each_scan_kernel_once(dev):
+    """_jitted_analysis against its eager function over three chunks, bit for
+    bit: every call, the first (warm-up and capture) and each replay, counts
+    one launch of each scan kernel."""
+    from aacjax_torch import encode_batch as EB
+    enc, chunks = TI.encoder_program_chunks(3, 3, 3)
+    key = (enc._si, enc._cutoff_bin, EB.FRAME, 3, enc._psy_key())
+    prog = EB._jitted_analysis(*key)
+    eager = EB._analysis_fn(*key, dev)
+    for k, chunk in enumerate(chunks):
+        ins = [torch.from_numpy(a).to(dev) for a in chunk]
+        before = (enc_scans.spread_count.launches, enc_scans.rate_cost_count.launches)
+        got = prog(*_clone(ins))
+        assert (enc_scans.spread_count.launches, enc_scans.rate_cost_count.launches) == (
+            before[0] + 1, before[1] + 1), k
+        _same_bits(got, eager(*ins), f"analysis chunk {k}")
+
+
+def test_batch_encoder_virtual_mesh_byte_identical(dev):
+    """BatchEncoder on a 4x1 mesh of virtual shards of one card (4 channel
+    rows a shard) against one device: two chunks byte-identical, one launch
+    of each scan kernel a shard a chunk."""
+    from aacjax_torch.runtime import mesh as meshlib
+    n = 4 * 1024
+    pcm = TI.encode_serving_pcm(8, 2 * n)
+    chunks = [pcm[:, k * n:(k + 1) * n] for k in range(2)]
+    outs, launches = {}, {}
+    for name, mesh in (("unsharded", None), ("4x1", meshlib.make_mesh(
+            4, 1, devices=[torch.device("cuda", 0)] * 4))):
+        enc = aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=8,
+                                        mesh=mesh)
+        before = (enc_scans.spread_count.launches, enc_scans.rate_cost_count.launches)
+        outs[name] = [enc.encode_chunk(c) for c in chunks]
+        launches[name] = (enc_scans.spread_count.launches - before[0],
+                          enc_scans.rate_cost_count.launches - before[1])
+    assert outs["4x1"] == outs["unsharded"]
+    assert launches == {"unsharded": (2, 2), "4x1": (8, 8)}
