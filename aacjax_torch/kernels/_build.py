@@ -63,7 +63,7 @@ _SIGNATURES = {
                           _F, _F, _F, _P],      # up, down, smr, stream
     "aacjax_enc_rate_cost": [_P, _P, _P,        # t34, is_short, regions
                              _P, _P, _P,        # base, fit_sf, zero_sf
-                             _P, _P, _P, _P,    # lut, exp2 table, offsets, est
+                             _P, _P, _P, _P,    # pair table, exp2, offsets, est
                              _I, _I, _I, _I, _P],   # N, Pe, nb, K, stream
 }
 

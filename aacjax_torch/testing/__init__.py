@@ -1046,6 +1046,55 @@ def enc_scans_random(seed: int, N: int, sample_rate: int = SR,
                 zero_sf=zero.astype(np.float32), nb=nb, Pe=Pe)
 
 
+def enc_grid_random(seed: int, N: int, Pe: int, nb: int,
+                    short_share: float = 0.25, odd_bands: bool = False
+                    ) -> dict:
+    """Random inputs of the rate-cost grid (kernels/enc_scans.py) at any
+    shape the kernel takes, beyond the encoder's arrangements: Pe bins
+    (even), nb bands (<= 63), long rows' bands in order over about 7/8 of
+    the bins (the rest padding, band nb), short rows' bins in 8 windows of
+    about nb / 8 bands each; band widths even, or any with odd_bands (so
+    that some pairs straddle two bands).  `base` / `fit_sf` / `zero_sf` as
+    in enc_scans_random (silent bands, bands a row type does not code),
+    `t34` from 0 past the 8191 clamp at the grid's offsets.  Numpy arrays;
+    `regions` int64 [2, Pe]."""
+    rng = np.random.default_rng(seed)
+
+    def band_map(bands, bins):
+        step = 1 if odd_bands else 2
+        cuts = np.sort(rng.choice(np.arange(step, bins, step), len(bands) - 1,
+                                  replace=False))
+        return np.repeat(bands, np.diff(np.concatenate([[0], cuts, [bins]])))
+
+    coded = (Pe * 7 // 8) & ~1
+    long_map = band_map(np.arange(nb), coded)
+    win = max(nb // 8, 1)
+    seg = (coded // 8) & ~1
+    short_map = np.concatenate([band_map((w * win + np.arange(win)) % nb, seg)
+                                for w in range(8)])
+    regions = np.full((2, Pe), nb, np.int64)
+    regions[0, :coded] = long_map
+    regions[1, :8 * seg] = short_map
+    is_short = rng.random(N) < short_share
+    fit = rng.integers(0, 130, (N, nb)).astype(np.float32)
+    zero = fit + rng.integers(70, 76, (N, nb))
+    base = fit + np.floor(rng.random((N, nb)) * (zero - fit + 1))
+    silent = rng.random((N, nb)) < 0.08
+    fit[silent], zero[silent], base[silent] = 0.0, -294.0, -294.0
+    uncoded = rng.random(nb) < 0.1
+    base = np.where(is_short[:, None] & uncoded, 255.0, base)
+    region = np.where(is_short[:, None], regions[1], regions[0])
+    b_bin = np.take_along_axis(
+        np.concatenate([base, np.full((N, 1), 255.0)], 1), region, 1)
+    amp = np.exp(rng.normal(0.5, 2.0, (N, Pe))) * (rng.random((N, Pe)) > 0.2)
+    t34 = amp * np.exp2((np.minimum(b_bin, 250.0) - 100.0) * 0.1875)
+    t34[(region == nb) | (b_bin < 0)] = 0.0
+    return dict(t34=t34.astype(np.float32), is_short=is_short,
+                regions=regions, base=base.astype(np.float32),
+                fit_sf=fit.astype(np.float32),
+                zero_sf=zero.astype(np.float32), nb=nb, Pe=Pe)
+
+
 def enc_scans_inputs(enc, pcm: np.ndarray, device) -> tuple[dict, tuple]:
     """One chunk `pcm` [S, n, ch] through `enc`'s host prep and the eager
     analysis program (`encode_batch._analysis_fn`) on `device`, with the

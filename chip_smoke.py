@@ -6,7 +6,9 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. environment (GPU, power limit, torch, nvcc, triton, native parser),
      the build of the CUDA kernels from aacjax_torch/kernels/csrc and what
-     ptxas reported for each kernel (registers, spills);
+     ptxas reported for each kernel (registers, spills), and for the
+     encoder's two scan kernels the conversion and leading-zero
+     instructions (FRND, F2I, I2F, FLO) in their SASS (cuobjdump);
   2. each kernel against its plain PyTorch version on the card at the main
      path's shapes and a few others, with its time beside the plain
      version's, the least time the card could take for the same work
@@ -291,6 +293,33 @@ def ptxas_lines(log: str) -> list[str]:
                        f"{spill}")
             name, spill = None, ""
     return out
+
+
+SLOW_OPS = ("FRND", "F2I", "I2F", "FLO")
+
+
+def sass_counts(lib_path, kernels) -> dict:
+    """For each kernel named in `kernels`, its SASS instructions in the
+    built library (cuobjdump -sass) counted by opcode (the mnemonic before
+    its first '.'), over every instantiation whose name holds it."""
+    from aacjax_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts = {k: {} for k in kernels}
+    current = None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if m and current:
+            op = m.group(1).split(".")[0]
+            counts[current][op] = counts[current].get(op, 0) + 1
+    return counts
 
 
 # -- phase 2: each kernel against its plain version ---------------------------
@@ -2583,6 +2612,12 @@ def main() -> None:
     say(f"kernels built in {secs:.1f} s: {path.relative_to(REPO)}")
     for line in ptxas_lines(_build.ptxas_log()):
         say(line)
+    for name, ops in sass_counts(path, ("enc_spread_kernel",
+                                        "enc_rate_cost_kernel")).items():
+        check(bool(ops), f"no SASS found for {name}")
+        say(f"sass {name}: " + ", ".join(f"{op} {ops.get(op, 0)}"
+                                         for op in SLOW_OPS)
+            + f" of {sum(ops.values())} instructions")
 
     dev = torch.device("cuda")
     results = phase_kernels(torch, dev)

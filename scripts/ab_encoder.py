@@ -11,8 +11,11 @@ on ENC-512 (512 AAC-LC stereo streams at 44.1 kHz and 128 kbps, chunks of
 runs, the stage split, the analysis program's device time, launches and
 costliest ops from a torch.profiler trace) and `graph_case` on the analysis
 program (eager and CUDA graph side by side: the host's launches, host ms,
-device ms, ms by CUDA events).  It prints their `ENC-512:` and `graphs:`
-lines, each tagged with the tree (`[parent]` or `[change]`).
+device ms, ms by CUDA events) and `phase_enc_scans_kernels` (the encoder's
+two scan kernels against their plain versions on an ENC-512 chunk's
+intermediates: ms a call by events, device ms, bound, plain ms).  It prints
+their `ENC-512:`, `graphs:` and `kernel enc_` lines, each tagged with the
+tree (`[parent]` or `[change]`).
 `scripts/ab_encoder.sh PARENT_TREE` runs parent, change, change, parent in
 one call.
 """
@@ -58,11 +61,12 @@ def main() -> None:
                 pcm_i16, w_idx.astype(np.int64), is_short))
             smoke.graph_case(torch, "encode analysis ENC-512",
                              enc._analysis_for(nF), ins, smoke.exact_tol)
+            smoke.phase_enc_scans_kernels(torch, torch.device("cuda"), {})
     except BaseException:
         print(out.getvalue()[-4000:])
         raise
     for line in out.getvalue().splitlines():
-        if line.startswith(("ENC-512:", "graphs:")):
+        if line.startswith(("ENC-512:", "graphs:", "kernel enc_")):
             print(f"[{tag}] {line}")
 
 

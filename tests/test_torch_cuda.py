@@ -1175,6 +1175,52 @@ def test_enc_rate_cost_kernel_equals_plain_bit_for_bit(dev, N, sample_rate,
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# (seed, N, Pe, nb, share of short rows, odd band edges, K): one offset and
+# 32 (two passes over each row), the widest coded region with the most bands,
+# Ns that no block of four rows divides, all-short and all-long rows, and
+# band edges inside pairs (a pair's bins in two bands)
+GRID_SHAPES = [(1, 4099, 544, 36, 0.25, False, 1),
+               (2, 4099, 544, 36, 0.25, False, 32),
+               (3, 2049, 1024, 63, 0.3, False, 16),
+               (4, 1023, 768, 49, 1.0, False, 16),
+               (5, 1023, 768, 49, 0.0, False, 16),
+               (6, 515, 1024, 63, 0.5, True, 32)]
+
+
+@pytest.mark.parametrize("seed,N,Pe,nb,short_share,odd_bands,K", GRID_SHAPES)
+def test_enc_rate_cost_kernel_at_every_shape_it_takes(dev, seed, N, Pe, nb,
+                                                      short_share, odd_bands,
+                                                      K):
+    d = TI.enc_grid_random(seed, N, Pe, nb, short_share, odd_bands)
+    args = [torch.from_numpy(d[k]).to(dev) for k in (
+        "t34", "is_short", "regions", "base", "fit_sf", "zero_sf")]
+    offsets = tuple(float(o) for o in np.round(np.linspace(-60, 64, K)))
+    before = enc_scans.rate_cost_count.launches
+    got = enc_scans.rate_cost(*args, offsets)
+    assert enc_scans.rate_cost_count.launches == before + 1
+    t34, is_short, regions = args[:3]
+    region = torch.where(is_short[:, None], regions[1], regions[0])
+    want = enc_scans.rate_cost_ref(
+        t34, region, *args[3:], enc_scans._constants(offsets, dev)["lut"],
+        offsets)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("N,nb", [(1, 49), (16385, 36), (16385, 63)])
+def test_enc_spread_kernel_at_edge_row_counts(dev, N, nb):
+    """One row, and one row past ENC-512's 16384 (a last block of one row),
+    at the widest band layout too."""
+    rng = np.random.default_rng(N + nb)
+    e = (np.exp(rng.normal(0.0, 3.0, (N, nb))) * 1e4).astype(np.float32)
+    e[rng.random((N, nb)) < 0.1] = 0.0
+    e = torch.from_numpy(e).to(dev)
+    before = enc_scans.spread_count.launches
+    got = enc_scans.spread(e, *_psy_rolloffs())
+    assert enc_scans.spread_count.launches == before + 1
+    want = enc_scans.spread_ref(e, *_psy_rolloffs()).contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_enc_scan_wrappers_refuse_what_the_kernels_do_not_take(dev):
     e = torch.zeros((4, 36), device=dev)
     with pytest.raises(ValueError, match="nb"):

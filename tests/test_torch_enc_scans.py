@@ -284,3 +284,186 @@ def test_wrappers_refuse_other_devices():
     t34 = torch.zeros((4, 544), device="meta")
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         enc_scans.rate_cost(t34, None, None, e, e, e, (0.0,))
+
+
+# -- the grid kernel's arithmetic (enc_scans.bin_code / pair_table /
+# rate_cost_model, the numpy model of csrc/enc_scans.cu) ----------------------
+F8191 = F32(8191.0)
+# y at and just below each class edge: 1, 16 and the escape lengths' powers
+# of two up to 4096, the 8191 clamp and past it, and t34 = 0's y
+EDGES = [F32(1.0), F32(16.0), *(F32(2.0 ** e) for e in range(5, 13)),
+         F8191, F32(8192.0)]
+EDGE_Y = np.array([F32(0.4054), F32(0.5), *EDGES,
+                   *(np.nextafter(v, F32(0.0)) for v in EDGES),
+                   F32(12345.5), F32(1e30), F32(np.inf)], F32)
+
+
+def magnitude(y):
+    """a = min(floor(y), 8191), as the plain version quantizes."""
+    return np.minimum(np.floor(np.asarray(y, np.float64)), 8191).astype(
+        np.int64)
+
+
+def test_bin_code_identities_at_the_class_edges():
+    """The identities the kernel uses in place of conversions, at every
+    class edge: the magic add rounded down is floor(min(y, 16)); the
+    exponent field E of min(y, 8191) gives a > 0 iff E >= 127, a >= 16 iff
+    E >= 131 and then floor(log2 a) = E - 127; and the pair table, read at
+    a bin's code beside a zero bin, holds its sign and escape bits (plus
+    book 11's cost of (min(a, 16), 0) in the nonzero half)."""
+    a = magnitude(EDGE_Y)
+    r = np.floor(np.minimum(EDGE_Y, F32(16.0)).astype(np.float64)
+                 + np.float64(enc_scans.MAGIC)).astype(F32)
+    assert np.array_equal(r.view(np.uint32) - enc_scans.MAGIC.view(np.uint32),
+                          np.minimum(a, 16))
+    E = (np.minimum(EDGE_Y.view(np.uint32), F8191.view(np.uint32))
+         >> 23).astype(np.int64)
+    assert np.array_equal(E >= 127, a > 0)
+    assert np.array_equal(E >= 131, a >= 16)
+    big = a >= 1
+    assert np.array_equal(E[big] - 127, np.floor(np.log2(a[big])))
+    codes = enc_scans.bin_code(EDGE_Y)
+    assert codes.min() >= 0 and codes.max() < enc_scans.CODES
+    table = enc_scans.pair_table()
+    zero_code = int(enc_scans.bin_code(F32(0.4054)))
+    bits = (a > 0) + np.where(a >= 16, 2 * np.floor(np.log2(np.maximum(
+        a, 1))).astype(np.int64) - 3, 0)
+    lut = _COST_LUTS[11][0].astype(np.int64)
+    assert np.array_equal(table[1][codes, zero_code], bits)
+    assert np.array_equal(table[0][codes, zero_code],
+                          bits + lut[np.minimum(a, 16) * 17])
+    # two ys share a code only if they share the class: a, or a >= 16 with
+    # the same floor(log2 a)
+    cls = np.where(a >= 16, 16 + np.floor(np.log2(np.maximum(a, 1))), a)
+    for c in np.unique(codes):
+        assert len(np.unique(cls[codes == c])) == 1, c
+
+
+def _t34_reaching(y_target, scale):
+    """The smallest float32 t34 >= 0 whose fl(fl(t34 * scale) + 0.4054) is
+    >= y_target (bisection over the bit patterns; y is monotone in t34)."""
+    lo = np.zeros(y_target.shape, np.int64)
+    hi = np.full(y_target.shape, int(F32(3e38).view(np.uint32)), np.int64)
+    while (hi > lo).any():
+        mid = (lo + hi) // 2
+        t = mid.astype(np.uint32).view(F32)
+        y = (t * scale).astype(F32) + F32(0.4054)
+        ok = y >= y_target
+        hi, lo = np.where(ok, mid, hi), np.where(ok, lo, mid + 1)
+    return lo.astype(np.uint32).view(F32)
+
+
+def edge_inputs():
+    """16 rows of 64 bins in 8 bands of 8 (N * Pe = 1024, so PyTorch's CPU
+    exp2 runs wholly in its vector path, as for the 256-entry table), long
+    and short rows, at OFF_GRID.  Bands 0..5's scalefactor at the grid's
+    offset 0 is base, at fit_sf (base + o below it), at zero_sf (the zero
+    band's edge), 255 (the clamp), base just below zero_sf and a silent
+    band; their bins' t34 put y at offset 0 at each class edge (EDGES: the
+    smallest y >= the edge) and just below it (the largest y < the edge),
+    at 12345.5, 1e30 and inf, with t34 = 0 between them."""
+    rng = np.random.default_rng(14)
+    N, nb, Pe = 16, 8, 64
+    regions = np.stack([np.repeat(np.arange(nb), 8),
+                        np.repeat(np.arange(nb)[::-1], 8)]).astype(np.int64)
+    is_short = np.arange(N) % 3 == 0
+    fit = rng.integers(0, 100, (N, nb)).astype(F32)
+    zero = fit + F32(73.0)
+    base = fit + F32(20.0)
+    base[:, 1] = fit[:, 1] - 30.0          # s = fit_sf
+    base[:, 2] = zero[:, 2]                # s = zero_sf: a zero band
+    base[:, 3], zero[:, 3] = 250.0, 400.0  # s clamps to 255 at offsets > 5
+    base[:, 4] = zero[:, 4] - 1.0          # the last nonzero scalefactor
+    fit[:, 5], zero[:, 5], base[:, 5] = 0.0, -294.0, -294.0   # silent
+    region = np.where(is_short[:, None], regions[1], regions[0])
+    s0 = np.take_along_axis(
+        np.concatenate([np.minimum(np.maximum(base, fit), 255.0),
+                        np.full((N, 1), 255.0, F32)], 1), region, 1)
+    scale = torch_exp2((F32(100.0) - s0.astype(F32)) * F32(0.1875))
+    # per bin a target y and whether to step one float below its t34
+    targets = np.array([*EDGES, F32(12345.5), F32(1e30)], F32)
+    kinds = np.array([(v, b) for v in range(len(targets)) for b in (0, 1)]
+                     + [(-1, 0), (-2, 0)])       # t34 = 0, t34 = 3e38
+    pick = kinds[rng.integers(0, len(kinds), (N, Pe))]
+    for i, (v, below) in enumerate(kinds[:-2]):  # every kind at least once
+        pick[i % N, 2 * i % Pe] = (v, below)
+    t34 = np.zeros((N, Pe), F32)
+    live = pick[..., 0] >= 0
+    t_at = _t34_reaching(targets[np.maximum(pick[..., 0], 0)], scale)
+    t_below = np.nextafter(t_at, F32(0.0))
+    t34[live] = np.where(pick[..., 1] == 1, t_below, t_at)[live]
+    t34[pick[..., 0] == -2] = F32(3e38)
+    return dict(t34=t34, is_short=is_short, regions=regions,
+                base=base.astype(F32), fit_sf=fit, zero_sf=zero.astype(F32),
+                scale=scale, region=region, pick=pick, targets=targets)
+
+
+def test_rate_cost_model_matches_ref_at_the_edges():
+    """The numpy model of the grid kernel (band table with the nonzero flag
+    in the magic constant, bin codes, pair table) against rate_cost_ref,
+    bit for bit, where y at offset 0 reaches every class edge and falls
+    just short of it, and the bands sit at fit_sf, at zero_sf, at 255 and
+    silent."""
+    d = edge_inputs()
+    offsets = tuple(TE.OFF_GRID.tolist())
+    t34, region, pick = d["t34"], d["region"], d["pick"]
+    with np.errstate(over="ignore"):
+        y0 = (t34 * d["scale"]).astype(F32) + F32(0.4054)
+    for v, edge in enumerate(d["targets"]):
+        at = y0[(pick[..., 0] == v) & (pick[..., 1] == 0)]
+        below = y0[(pick[..., 0] == v) & (pick[..., 1] == 1)]
+        assert at.size and below.size, edge
+        assert (at >= edge).all() and (below < edge).all(), edge
+        if edge <= 8192:                    # the class changes at the edge
+            assert (magnitude(at) == min(edge, 8191)).all(), edge
+            assert (magnitude(below) == edge - 1).all(), edge
+    assert np.isinf(y0[pick[..., 0] == -2]).any()
+    exp2 = torch_exp2((F32(100.0) - np.arange(256, dtype=F32)) * F32(0.1875))
+    # the plain version's exp2 of each bin's scalefactor is the table's
+    N = t34.shape[0]
+
+    def per_bin(v, fill):
+        return np.take_along_axis(
+            np.concatenate([v, np.full((N, 1), fill, F32)], 1), region, 1)
+
+    for o in offsets:
+        sfb = np.minimum(np.maximum(per_bin(d["base"], 255.0) + F32(o),
+                                    per_bin(d["fit_sf"], 255.0)), F32(255.0))
+        assert_bits_equal(torch_exp2((F32(100.0) - sfb) * F32(0.1875)),
+                          exp2[sfb.astype(np.int64)], f"exp2 at {o}")
+    with np.errstate(over="ignore"):
+        got = enc_scans.rate_cost_model(t34, d["is_short"], d["regions"],
+                                        d["base"], d["fit_sf"], d["zero_sf"],
+                                        exp2, offsets)
+    want = enc_scans.rate_cost_ref(
+        _t(t34), _t(region), _t(d["base"]), _t(d["fit_sf"]),
+        _t(d["zero_sf"]), _t(_COST_LUTS[11][0].astype(F32).reshape(-1)),
+        offsets)
+    assert_bits_equal(got, want, "est")
+
+
+# (seed, N, Pe, nb, share of short rows, odd band edges, K): the card tests'
+# shapes (tests/test_torch_cuda.py GRID_SHAPES) at fewer rows
+@pytest.mark.parametrize("seed,N,Pe,nb,short_share,odd_bands,K", [
+    (1, 7, 544, 36, 0.25, False, 1), (2, 7, 544, 36, 0.25, False, 32),
+    (3, 9, 1024, 63, 0.3, False, 16), (4, 5, 768, 49, 1.0, False, 16),
+    (5, 5, 768, 49, 0.0, False, 16), (6, 11, 1024, 63, 0.5, True, 32)])
+def test_rate_cost_model_matches_ref_at_every_shape(seed, N, Pe, nb,
+                                                    short_share, odd_bands,
+                                                    K):
+    """The model against rate_cost_ref, bit for bit, at one offset and 32,
+    the widest region and band layout, all-short and all-long rows and
+    pairs that straddle two bands."""
+    d = TI.enc_grid_random(seed, N, Pe, nb, short_share, odd_bands)
+    offsets = tuple(float(o) for o in np.round(np.linspace(-60, 64, K)))
+    region = np.where(d["is_short"][:, None], d["regions"][1],
+                      d["regions"][0])
+    want = enc_scans.rate_cost_ref(
+        _t(d["t34"]), _t(region), _t(d["base"]), _t(d["fit_sf"]),
+        _t(d["zero_sf"]), _t(_COST_LUTS[11][0].astype(F32).reshape(-1)),
+        offsets)
+    exp2 = torch_exp2((F32(100.0) - np.arange(256, dtype=F32)) * F32(0.1875))
+    got = enc_scans.rate_cost_model(d["t34"], d["is_short"], d["regions"],
+                                    d["base"], d["fit_sf"], d["zero_sf"],
+                                    exp2, offsets)
+    assert_bits_equal(got, want, "est")
