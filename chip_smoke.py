@@ -126,12 +126,23 @@ Phases, each printed as it runs; any failure exits non-zero:
      copies the host made and the device ops (a torch.profiler trace of 10
      calls; one graph launch a call), the host's enqueue ms, the device ms,
      the ms by CUDA events (median of 10 runs of 3 calls), and the
-     capture ms and pool bytes of the graph.
+     capture ms and pool bytes of the graph;
+ 11. the port's benchmark (aacjax_torch/bench.py) cut in depth: the LC
+     headline by its command line in a process of its own (python -m
+     aacjax_torch.bench --lc-only --seconds 2 --repeats 2, 512 streams),
+     its JSON line held to the reference's schema, every stage key present,
+     every value finite and positive and `device` naming the card; then
+     bench_he, bench_he(ps=True) at 512 streams and bench_encode at 128, 2 s
+     of audio a stream and 1 rep each, in this process: no mode with an
+     error, the stage keys, and the tail, the PS decorrelator and the
+     encoder's two scan kernels launched on their modes (these launches
+     count into the kernels line).
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2574,6 +2585,137 @@ def exact_tol(got, want, what: str) -> float:
     return 0.0
 
 
+
+# -- phase 11: the port's benchmark ---------------------------------------------
+BENCH_SECONDS = 2.0  # audio a stream in each mode (the default run: 8 s LC,
+                     # 4 s the sub-benches)
+BENCH_ENC_STREAMS = 128
+BENCH_TIMEOUT = 600  # seconds the LC command may take
+BENCH_LC_STAGES = ("parse_s", "h2d_s", "dispatch_s", "compute_s", "d2h_s",
+                   "chunk_audio_s", "compute_realtime_x", "wall_chunk_s",
+                   "serial_floor_s", "overlap_floor_s",
+                   "pipeline_overlap_eff")
+BENCH_HE_STAGES = ("host_s", "core_s", "core_compute_s", "sbr_h2d_s",
+                   "sbr_dispatch_s", "sbr_compute_s", "d2h_s",
+                   "chunk_audio_s", "compute_realtime_x")
+BENCH_ENC_SPLIT = ("prep_s", "h2d_s", "analysis_dispatch_s",
+                   "analysis_compute_s", "est_d2h_s", "rate_s",
+                   "quantize_dispatch_s", "quantize_compute_s", "q_d2h_s",
+                   "write_s", "chunk_audio_s", "compute_realtime_x")
+BENCH_ENC_STAGES = ("h2d_s", "analysis_s", "d2h_s", "host_s", "write_s",
+                    "frames")
+
+
+def bench_check(torch, name: str, res: dict, metric: str,
+                stage_keys: dict) -> None:
+    """One result of aacjax_torch.bench: no error or skip, the reference's
+    schema, the metric, `device` naming this card, and under each key of
+    `stage_keys` those stages, every value finite and positive (the
+    pipeline's overlap efficiency finite: it is negative where the wall
+    exceeds the serial sum of the stages)."""
+    check("error" not in res and "skipped" not in res,
+          f"{name}: the mode failed: {res}")
+    for key in ("metric", "value", "median", "reps", "unit", "device",
+                *stage_keys):
+        check(key in res, f"{name}: no {key!r} in {sorted(res)}")
+    check(res["metric"] == metric, f"{name}: metric {res['metric']!r}, "
+          f"expected {metric!r}")
+    check(torch.cuda.get_device_name(0) in res["device"],
+          f"{name}: device {res['device']!r} does not name "
+          f"{torch.cuda.get_device_name(0)!r}")
+    nums = {"value": res["value"], "median": res["median"],
+            **{f"reps[{i}]": v for i, v in enumerate(res["reps"])}}
+    for key, keys in stage_keys.items():
+        check(set(res[key]) == set(keys), f"{name}: {key} keys "
+              f"{sorted(res[key])}, expected {sorted(keys)}")
+        nums.update({f"{key}.{k}": v for k, v in res[key].items()})
+    for k, v in nums.items():
+        ok = isinstance(v, (int, float)) and np.isfinite(v)
+        check(ok and (v > 0 or k.endswith("pipeline_overlap_eff")),
+              f"{name}: {k} = {v!r}")
+
+
+def phase_bench(torch) -> dict:
+    """The port's benchmark, aacjax_torch/bench.py, cut in depth: the LC
+    headline through its command line (python -m aacjax_torch.bench
+    --lc-only, 512 streams of BENCH_SECONDS, 2 reps) in a process of its
+    own, its last line parsed and held to the schema; then bench_lc (the
+    same corpus, no stage split), bench_he, bench_he(ps=True) (512
+    streams, chunks of 8) and bench_encode (128 streams, chunks of 8) in
+    this process, 1 rep each.  Each counts its launches through its
+    `timed` hook, set to 0 after the warm-up and read after the timed
+    rep, before the stage split: the tail launched in the LC and both HE
+    modes, the PS decorrelator in the PS mode, the encoder's two scan
+    kernels in the encode mode.  Returns the in-process modes'
+    launches."""
+    from aacjax_torch import bench
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "aacjax_torch.bench", "--lc-only",
+           "--seconds", str(BENCH_SECONDS), "--repeats", "2"]
+    try:
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"bench: {' '.join(cmd[1:])} ran past {BENCH_TIMEOUT} s")
+    check(r.returncode == 0, f"bench: {' '.join(cmd[1:])} exited "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    check(bool(lines), "bench: the LC command printed nothing")
+    try:
+        lc = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"bench: the LC command's last line is not JSON: {lines[-1]!r}")
+    bench_check(torch, "bench lc", lc, "aggregate_realtime_x",
+                {"stages": BENCH_LC_STAGES})
+    say(f"bench lc ({' '.join(cmd[1:])}, {time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(lc)}")
+
+    counts = {}
+
+    @contextlib.contextmanager
+    def counted():
+        """The launches of a bench's timed reps, into `counts`."""
+        torch.cuda.synchronize()
+        reset_launches()
+        yield
+        torch.cuda.synchronize()
+        counts.update(read_launches())
+
+    lc_args = bench._parse_args(["--seconds", str(BENCH_SECONDS),
+                                 "--repeats", "1", "--no-stages"])
+    modes = (
+        ("lc (in process)", lambda: bench.bench_lc(lc_args, timed=counted),
+         "aggregate_realtime_x", {}, ("tail",)),
+        ("he", lambda: bench.bench_he(N_STREAMS, BENCH_SECONDS, HE_CHUNK, 1,
+                                      timed=counted),
+         "he_aac_aggregate_realtime_x", {"stages": BENCH_HE_STAGES},
+         ("tail",)),
+        ("ps", lambda: bench.bench_he(N_STREAMS, BENCH_SECONDS, HE_CHUNK, 1,
+                                      ps=True, timed=counted),
+         "he_aac_v2_aggregate_realtime_x", {"stages": BENCH_HE_STAGES},
+         ("tail", "ps_decorr")),
+        ("encode", lambda: bench.bench_encode(BENCH_ENC_STREAMS,
+                                              BENCH_SECONDS, 8, 1,
+                                              timed=counted),
+         "encode_aggregate_realtime_x",
+         {"stages": BENCH_ENC_STAGES, "stages_split": BENCH_ENC_SPLIT},
+         ENC_KERNELS))
+    total = dict.fromkeys(KERNELS, 0)
+    for name, run, metric, stage_keys, kernels in modes:
+        t1 = time.perf_counter()
+        counts.clear()
+        res = run()
+        bench_check(torch, f"bench {name}", res, metric, stage_keys)
+        for kernel in kernels:
+            check(counts.get(kernel, 0) > 0, f"bench {name}: the {kernel} "
+                  "kernel was never launched in the timed reps")
+        add_counts(total, counts)
+        say(f"bench {name} ({time.perf_counter() - t1:.1f} s, launches "
+            f"{counts}): {json.dumps(res)}")
+    say(f"bench: phase done in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 T0 = time.perf_counter()
 
 
@@ -2631,11 +2773,12 @@ def main() -> None:
                   phase_surfaces, phase_encode_serving, phase_mesh):
         for kernel, n in phase(torch).items():
             launches[kernel] += n
+    phase_graphs(torch)
+    add_counts(launches, phase_bench(torch))
     for kernel in KERNELS:
         check(launches[kernel] > 0, f"the {kernel} kernel was never launched "
               "on a main path")
         results[kernel]["launches"] = launches[kernel]
-    phase_graphs(torch)
 
     src = "aacjax_torch/kernels/csrc/"
     meta = {"tail": (src + "filterbank.cu", "aacjax/kernels/pallas_tail.py:190"),
