@@ -54,6 +54,16 @@ the same code on a one-shard mesh of self.device.  The carried state lives
 as row blocks on the stream shards' first devices; a call with another
 mesh gathers and re-splits it, and stream resets write into the blocks in
 place, so a decoder stays one decoder whatever meshes its calls use.
+
+Measurement (runtime/stats.py): `stats` keeps running totals; setting
+`trace` to a `Trace()` records spans at the serving layers' boundaries
+(`parse` with `parse.wait_h2d`, `parse.native`, `parse.compact`;
+`he_host` with `he.begin`, the core `parse`, `he.sbr`, `he.stage`;
+`wait.upload` / `wait.download` on the main thread; `upload_dispatch`, or
+`core_step`, `sbr_upload` and `sbr_dispatch`, on the upload worker;
+`download` with `download.replay` on the download worker) and the SBR
+loop's counters (`sbr_parse_ns`, `sbr_pack_ns`, `sbr_payloads`,
+`sbr_cache_lookups`, `_hits`, `_inserts`), each under its chunk id.
 """
 from __future__ import annotations
 
@@ -81,7 +91,7 @@ from aacjax_torch.kernels import ps_batch as PB
 from aacjax_torch.kernels import sbr_batch as SB
 from aacjax_torch.runtime import mesh as meshlib
 from aacjax_torch.runtime.pack import SlotOverflowError, pack_frames
-from aacjax_torch.runtime.stats import DecodeStats
+from aacjax_torch.runtime.stats import DecodeStats, Trace
 
 FRAME = 1024
 NATIVE_FRAME_LENGTHS = (1024, 960, 512, 480)
@@ -272,7 +282,9 @@ class BatchDecoder:
         if self._sbr_bufs is not None and cce_slots >= 1 and any(
                 cfg.channels == 1 for cfg in configs):
             self._ps_buffers()
-        self._pending_steps: dict[int, tuple] = {}
+        # each dispatched step's stats record, by chunk id, until
+        # finalize_step completes it (direct calls: the latest, under None)
+        self._pending_steps: dict[int | None, tuple] = {}
         # a reset asked for while a pipelined generator runs waits for the
         # next chunk boundary (request_reset)
         self._pipeline_active = False
@@ -281,6 +293,7 @@ class BatchDecoder:
         self._last_consumed = np.zeros(1, np.int64)
         self.stats = DecodeStats(
             sample_rate=configs[0].sample_rate if configs else 44100)
+        self.trace: Trace | None = None
 
     # -- carried state, whole or in row blocks -------------------------------
     # Each carried state is whole on self.device or meshlib.RowBlocks on the
@@ -579,12 +592,15 @@ class BatchDecoder:
 
     # -- host parse: the native route --------------------------------------------
     def _parse_native(self, payloads_per_stream, buf_slot: int = 0,
-                      compact: bool = True, qsf: bool = False) -> dict:
+                      compact: bool = True, qsf: bool = False,
+                      chunk_id: int | None = None) -> dict:
         """One native C call parses every stream's chunk into buffer
         `buf_slot`.  Returns a batch of host tensors plus '_'-prefixed
-        host-side facts.  A batch with a Main-profile stream ships exact f32
-        spectra whatever `compact` says: the predictor's state feeds back
-        across frames and is sensitive to the last bit.
+        host-side facts (`_chunk_id` among them: the serving entry's number
+        for the chunk, None for a direct call).  A batch with a Main-profile
+        stream ships exact f32 spectra whatever `compact` says: the
+        predictor's state feeds back across frames and is sensitive to the
+        last bit.
 
         qsf=True (the HE core) asks for the exact-i16 q/sf spectra (raw
         quantized coefficients and a scalefactor byte per 4 bins,
@@ -593,18 +609,23 @@ class BatchDecoder:
         intensity, M/S, coupling or escape > 8191) and no DRC gain applies,
         else the exact f32 spectra do.  The SBR FIL records land in
         _last_fil_sbr."""
+        t0 = time.perf_counter_ns()
         if self._any_main:
             compact = False
         if qsf:
             self._he_buffers()
         if self._buffers is None:
             raise RuntimeError("this decoder was made with use_native=False")
+        tr = self.trace
+        if tr is not None:
+            span = tr.open("parse", chunk_id, t0)
         arrays, host = self._buffers[buf_slot]
         # the previous copies out of this buffer must have landed before the
         # parser overwrites it
-        _wait(self._h2d_done[buf_slot])
-        t0 = time.perf_counter()
-        status, has_tns, errmsg = native.parse_batch_spec(
+        self._spanned("parse.wait_h2d", chunk_id, _wait,
+                      self._h2d_done[buf_slot])
+        status, has_tns, errmsg = self._spanned(
+            "parse.native", chunk_id, native.parse_batch_spec,
             payloads_per_stream, self._sample_indices, self._chan_configs,
             self._base_slots, self._n_slots, self.prev_shapes, arrays,
             tables_pack=self._tables_pack, want_qsf=qsf,
@@ -638,7 +659,9 @@ class BatchDecoder:
         if use_qsf:
             keys = ["spec_q", "spec_sf", "meta"]
         elif compact:
-            native.compact_spec(arrays)   # writes into the host tensors
+            # writes into the host tensors
+            self._spanned("parse.compact", chunk_id, native.compact_spec,
+                          arrays)
             keys = ["spec_i16", "spec_scale", "meta"]
         else:
             keys = ["spec", "meta"]
@@ -659,16 +682,32 @@ class BatchDecoder:
             batch.update(pred_meta=host["pred_meta"],
                          pred_used_u8=host["pred_used"])
         meta = arrays.meta
+        has_short = bool(meta[:, :, 4].any())
+        n_stream_frames = sum(len(p) for p in payloads_per_stream if p)
+        n_channel_frames = int((meta[:, :, 5] != 0).sum())
+        t1 = time.perf_counter_ns()
+        if tr is not None:
+            tr.close(span, t1)
         batch.update(
-            _slot=buf_slot, _has_tns=has_tns,
-            _has_short=bool(meta[:, :, 4].any()),
+            _slot=buf_slot, _has_tns=has_tns, _has_short=has_short,
             _spec_i16=compact and not use_qsf, _spec_qsf=use_qsf,
             _has_pred=self._any_main, _has_cce_post=n_post > 0,
-            _has_cce_time=n_time > 0,
-            _parse_seconds=time.perf_counter() - t0,
-            _n_stream_frames=sum(len(p) for p in payloads_per_stream if p),
-            _n_channel_frames=int((meta[:, :, 5] != 0).sum()))
+            _has_cce_time=n_time > 0, _chunk_id=chunk_id,
+            _t_start=t0 * 1e-9, _parse_seconds=(t1 - t0) * 1e-9,
+            _n_stream_frames=n_stream_frames,
+            _n_channel_frames=n_channel_frames)
         return batch
+
+    def _spanned(self, name: str, chunk_id: int | None, fn, *args, **kw):
+        """fn(*args, **kw), inside span `name` when tracing."""
+        tr = self.trace
+        if tr is None:
+            return fn(*args, **kw)
+        span = tr.open(name, chunk_id)
+        try:
+            return fn(*args, **kw)
+        finally:
+            tr.close(span)
 
     def _apply_native_drc(self, payloads_per_stream, out) -> None:
         """Fold each frame's dynamic_range_info gains (FIL payload found by
@@ -745,13 +784,13 @@ class BatchDecoder:
             spec_qsf=facts["_spec_qsf"], has_pred=facts["_has_pred"],
             has_short=facts["_has_short"], eld=self._eld)
 
-    def _pend(self, pcm, t0: float, facts: dict, done) -> None:
-        """Open the stats record that finalize_step completes."""
-        if len(self._pending_steps) > 16:  # caller never finalized; bound it
-            self._pending_steps.clear()
-        self._pending_steps[id(pcm)] = (
-            t0, facts["_parse_seconds"], facts["_n_stream_frames"],
-            facts["_n_channel_frames"], done)
+    def _pend(self, t0: float, facts: dict, done) -> None:
+        """Open the stats record that finalize_step completes: (the step's
+        start, its dispatch, its parse seconds, stream frames, channel
+        frames, the devices' done events)."""
+        self._pending_steps[facts["_chunk_id"]] = (
+            facts["_t_start"], t0, facts["_parse_seconds"],
+            facts["_n_stream_frames"], facts["_n_channel_frames"], done)
         self.stats.streams_failed = sum(st.failed for st in self.streams)
 
     def _device_step(self, batch: dict, out_int16: bool = False,
@@ -774,20 +813,26 @@ class BatchDecoder:
         t0 = time.perf_counter()
         pcm = self._run_step(meshlib.sharded_decode_spec_step(flags, mesh),
                              shards, flags, mesh)
-        self._pend(pcm, t0, facts, self._record_done(mesh.device_set))
+        self._pend(t0, facts, self._record_done(mesh.device_set))
         return pcm
 
-    def finalize_step(self, pcm) -> np.ndarray:
-        """Bring a _device_step result to the host and complete its stats
-        record (device_seconds spans dispatch -> PCM on the host).  Its
-        row blocks land in their rows of one pinned buffer, each on its
-        device's copy stream."""
-        pending = self._pending_steps.pop(id(pcm), None)
-        out = self._download_blocks(pcm, pending[4] if pending else {})
+    def finalize_step(self, pcm, chunk_id: int | None = None) -> np.ndarray:
+        """Bring a _device_step result to the host and complete the stats
+        record of chunk `chunk_id` (device_seconds spans dispatch -> PCM on
+        the host; a direct call, chunk None, also adds its wall from its
+        parse).  A direct call's record is the latest direct step's, so
+        finalize a direct step before the next one.  Its row blocks land in
+        their rows of one pinned buffer, each on its device's copy
+        stream."""
+        pending = self._pending_steps.pop(chunk_id, None)
+        out = self._download_blocks(pcm, pending[-1] if pending else {})
         if pending is not None:
-            t0, parse_seconds, n_stream_frames, n_channel_frames, _ = pending
-            self.stats.add_step(parse_seconds, time.perf_counter() - t0,
-                                n_stream_frames, n_channel_frames)
+            t_start, t0, parse_s, n_stream_frames, n_channel_frames, _ = \
+                pending
+            now = time.perf_counter()
+            self.stats.add_step(parse_s, now - t0, n_stream_frames,
+                                n_channel_frames,
+                                now - t_start if chunk_id is None else 0.0)
         return out
 
     def _download_blocks(self, pcm: meshlib.RowBlocks, done: dict
@@ -893,7 +938,7 @@ class BatchDecoder:
     def decode_pipelined(self, chunk_iter, out_int16: bool = True,
                          compact: bool = True, mesh=None):
         """Generator decoding an iterator of payload chunks on the native
-        route as a 3-stage pipeline over two parse buffers:
+        route as a 3-stage pipeline over two parse buffers (_pipeline):
 
             main thread    : native parse of chunk k (releases the GIL)
             upload worker  : H2D copy + dispatch of chunk k-1
@@ -904,56 +949,89 @@ class BatchDecoder:
         streams, concurrently with the compute stream; the overlap and the
         predictor state advance on the upload worker only, in chunk order,
         on the compute stream.  A reset asked for through request_reset
-        while this runs applies at the next chunk boundary, after the step
-        in flight has been dispatched.  Yields host PCM arrays [C, T, F] in
+        while this runs applies at the next chunk boundary, after the steps
+        in flight have finished.  Yields host PCM arrays [C, T, F] in
         chunk order.
 
         With `mesh` (runtime/mesh.py make_mesh) every stage runs sharded:
         the upload worker lands each shard's slice on its devices and
         dispatches every shard's step, the download worker brings each
         shard's PCM into its rows of the output."""
-        up_pool = concurrent.futures.ThreadPoolExecutor(1)
-        down_pool = concurrent.futures.ThreadPoolExecutor(1)
-        up_fut = down_fut = None
-        slot = 0
         mesh = self._mesh(mesh)
 
-        def upload_dispatch(batch):
-            return self._device_step(batch, out_int16, mesh=mesh)
+        def host(chunk, slot, k):
+            return self._parse_native(chunk, buf_slot=slot, compact=compact,
+                                      chunk_id=k)
+
+        def upload(batch, k):
+            return self._spanned("upload_dispatch", k, self._device_step,
+                                 batch, out_int16, mesh=mesh)
+
+        def download(pcm, k):
+            return self._spanned("download", k, self.finalize_step, pcm, k)
+
+        yield from self._pipeline(chunk_iter, host, upload, download,
+                                  lambda: bool(self._deferred_resets),
+                                  self._apply_deferred_resets)
+
+    def _pipeline(self, chunk_iter, host, upload, download, unsettled,
+                  settle):
+        """The serving pipeline of decode_pipelined and decode_he_pipelined.
+        Chunk k (numbered from 0 in the order chunk_iter hands them over)
+        runs host(chunk, buffer slot, k) on this thread, upload(its result,
+        k) on the upload worker, download(that result, k) on the download
+        worker, while chunk k + 1 runs on this thread; the buffer slot
+        alternates.  Before a chunk, when unsettled() says the state the
+        workers use is to change (resets, re-adoption), everything in
+        flight finishes first, then settle() runs.  Yields the downloads'
+        results in chunk order; stats.wall_seconds grows from the first
+        hand-over to each yield, and the waits on the workers are the spans
+        wait.upload and wait.download."""
+        up_pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="upload")
+        down_pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="download")
+        up = down = None     # (chunk id, future) in flight on each worker
+        t_last = None
+
+        def emit():
+            nonlocal down, t_last
+            k, fut = down
+            out = self._spanned("wait.download", k, fut.result)
+            down = None
+            now = time.perf_counter()
+            self.stats.wall_seconds += now - t_last
+            t_last = now
+            yield out
+
+        def advance():       # the upload in flight moves to the download
+            nonlocal up, down
+            k, fut = up
+            res = self._spanned("wait.upload", k, fut.result)
+            up = None
+            if down is not None:
+                yield from emit()
+            down = (k, down_pool.submit(download, res, k))
 
         try:
             self._pipeline_active = True
-            for chunk in chunk_iter:
-                if self._deferred_resets:
-                    # a reset touches state the upload worker replaces
-                    # (overlap, predictor state) and the parser's shape
-                    # history: let the step in flight be dispatched first;
-                    # the reset's device work then follows it on the
-                    # compute stream
-                    if up_fut is not None:
-                        pcm_dev = up_fut.result()
-                        up_fut = None
-                        if down_fut is not None:
-                            yield down_fut.result()
-                        down_fut = down_pool.submit(self.finalize_step,
-                                                    pcm_dev)
-                    self._apply_deferred_resets()
-                parsed = self._parse_native(chunk, buf_slot=slot,
-                                            compact=compact)
-                if up_fut is not None:
-                    pcm_dev = up_fut.result()
-                    if down_fut is not None:
-                        yield down_fut.result()
-                    down_fut = down_pool.submit(self.finalize_step, pcm_dev)
-                up_fut = up_pool.submit(upload_dispatch, parsed)
-                slot ^= 1
-            if up_fut is not None:
-                pcm_dev = up_fut.result()
-                if down_fut is not None:
-                    yield down_fut.result()
-                down_fut = down_pool.submit(self.finalize_step, pcm_dev)
-            if down_fut is not None:
-                yield down_fut.result()
+            for k, chunk in enumerate(chunk_iter):
+                if t_last is None:
+                    t_last = time.perf_counter()
+                if unsettled():
+                    if up is not None:
+                        yield from advance()
+                    if down is not None:
+                        yield from emit()
+                    settle()
+                res = host(chunk, k & 1, k)
+                if up is not None:
+                    yield from advance()
+                up = (k, up_pool.submit(upload, res, k))
+            if up is not None:
+                yield from advance()
+            if down is not None:
+                yield from emit()
         finally:
             self._pipeline_active = False
             up_pool.shutdown(wait=True)
@@ -1200,7 +1278,7 @@ class BatchDecoder:
             self._sbr_cfg_dev = (key, dev)
         return self._sbr_cfg_dev[1]
 
-    def _he_ctx(self, buf_slot: int) -> dict:
+    def _he_ctx(self, buf_slot: int, chunk_id: int | None = None) -> dict:
         """One chunk's SBR bookkeeping, captured so that the device phase
         can run on a worker while the next chunk parses (the captured
         objects are made anew per chunk; the sticky set and the cfg planes
@@ -1218,7 +1296,7 @@ class BatchDecoder:
             host_snap=self._host_state_snap,
             sticky=[s for s in range(self.C)
                     if self._sbr_np_sticky[s] and self._chunk_nframes[s]],
-            cfg=self._sbr_cfg_snap, slot=buf_slot,
+            cfg=self._sbr_cfg_snap, slot=buf_slot, chunk_id=chunk_id,
             ps_enabled=self._ps_enabled, ps_snap=self._ps_pack_snap,
             ps_slot_modes=list(self._ps_slot_is34),
             ps_pair=list(self._ps_pair))
@@ -1310,7 +1388,7 @@ class BatchDecoder:
         return bufs
 
     def _he_host_phase(self, payloads_per_stream, compact: bool = True,
-                       buf_slot: int = 0):
+                       buf_slot: int = 0, chunk_id: int | None = None):
         """Host half of one HE chunk on the native route: the C core parse
         (which records the SBR FIL positions), the Python parse of the SBR
         extensions, the dense pack.  Returns (parsed core, SBR planes, ctx)
@@ -1322,13 +1400,29 @@ class BatchDecoder:
         amplified ~100x on near-empty bands.  compact=True sends them as
         the exact q/sf form (2.25 bytes a bin) where the chunk allows it and
         the SBR planes compacted; compact=False sends f32 spectra and the
-        exact planes."""
+        exact planes.
+
+        When tracing, the SBR loop interleaves parse and pack a payload at
+        a time, so it counts their nanoseconds (sbr_parse_ns: the cache
+        lookup and, on a miss, read_sbr_extension; sbr_pack_ns) and the
+        cache's lookups, hits (a lookup that found an entry) and inserts."""
+        t0 = time.perf_counter_ns()
+        tr = self.trace
+        if tr is not None:
+            span = tr.open("he_host", chunk_id, t0)
+            part = tr.open("he.begin", chunk_id, t0)
         self._sbr_init()
         self._sbr_chunk_begin(payloads_per_stream)
         dense = (SP.alloc_dense_cached(self.C, self.T, buf_slot) if compact
                  else SP.alloc_dense(self.C, self.T))
+        if tr is not None:
+            tr.close(part)
         parsed = self._parse_native(payloads_per_stream, buf_slot=buf_slot,
-                                    compact=False, qsf=compact)
+                                    compact=False, qsf=compact,
+                                    chunk_id=chunk_id)
+        if tr is not None:
+            part = tr.open("he.sbr", chunk_id)
+            parse_ns = pack_ns = n_payloads = hits = inserts = 0
         fil = self._last_fil_sbr
         g = 0
         cache = self._sbr_parse_cache
@@ -1339,8 +1433,10 @@ class BatchDecoder:
                     bitpos, slot, nch = int(rec[0]), int(rec[1]), int(rec[2])
                     if bitpos == 0:
                         continue
+                    if tr is not None:
+                        ta = time.perf_counter_ns()
                     key = (payload, bitpos, nch)
-                    sf = cache.get(key)
+                    found = sf = cache.get(key)
                     if sf is not None and sf.header == ctx.header:
                         sbrmod.apply_frame_state(ctx, sf)
                     else:
@@ -1350,14 +1446,39 @@ class BatchDecoder:
                         sf = sbrmod.read_sbr_extension(
                             r, ctx, nch == 2,
                             ext_type == sbrmod.EXT_SBR_DATA_CRC)
-                        if sbrmod.frame_is_context_free(sf):
+                        insert = sbrmod.frame_is_context_free(sf)
+                        if insert:
                             if len(cache) > 512:
                                 cache.clear()
                             cache[key] = sf
+                    if tr is not None:
+                        tb = time.perf_counter_ns()
+                        parse_ns += tb - ta
+                        n_payloads += 1
+                        hits += found is not None
+                        inserts += sf is not found and insert
                     self._sbr_pack_payload(dense, sf, slot, nch, t)
+                    if tr is not None:
+                        pack_ns += time.perf_counter_ns() - tb
                 g += 1
-        return (parsed, self._stage_dense(dense, compact, buf_slot),
-                self._he_ctx(buf_slot))
+        if tr is not None:
+            tr.close(part)
+            for name, n in (("sbr_parse_ns", parse_ns),
+                            ("sbr_pack_ns", pack_ns),
+                            ("sbr_payloads", n_payloads),
+                            ("sbr_cache_lookups", n_payloads),
+                            ("sbr_cache_hits", hits),
+                            ("sbr_cache_inserts", inserts)):
+                tr.count(name, chunk_id, n)
+            part = tr.open("he.stage", chunk_id)
+        staged = self._stage_dense(dense, compact, buf_slot)
+        ctx = self._he_ctx(buf_slot, chunk_id)
+        if tr is not None:
+            t1 = time.perf_counter_ns()
+            tr.close(part, t1)
+            tr.close(span, t1)
+        parsed["_t_start"] = t0 * 1e-9   # a direct step's wall starts here
+        return parsed, staged, ctx
 
     def _sbr_dispatch(self, core_pcm: meshlib.RowBlocks, dev_dense: list,
                       ps_dense: list | None, ctx: dict, out_int16: bool,
@@ -1416,9 +1537,9 @@ class BatchDecoder:
             self._sbr_dev = state
             done = self._record_done(devs)
         # the core step's stats record now completes with the SBR output
-        pending = self._pending_steps.pop(id(core_pcm), None)
+        pending = self._pending_steps.get(ctx["chunk_id"])
         if pending is not None:
-            self._pending_steps[id(pcm2)] = pending[:4] + (done,)
+            self._pending_steps[ctx["chunk_id"]] = (*pending[:-1], done)
         return pcm2, seeds
 
     def _sbr_stage(self, core_pcm: meshlib.RowBlocks, dense: dict, ctx: dict,
@@ -1437,9 +1558,12 @@ class BatchDecoder:
         that has just turned sticky starting from its pre-chunk device
         state (seeds) and host snapshot, so the switch is continuous."""
         sticky = ctx["sticky"]
-        out = self.finalize_step(pcm2)
+        out = self.finalize_step(pcm2, ctx["chunk_id"])
         if not sticky:
             return out
+        tr = self.trace
+        if tr is not None:
+            span = tr.open("download.replay", ctx["chunk_id"])
         # finalize_step waited for the SBR step, which followed the core's
         core_np = meshlib.gather(core_pcm, torch.device("cpu")).cpu().numpy()
         from aacjax_torch.host.ps_decode import apply_ps
@@ -1490,6 +1614,8 @@ class BatchDecoder:
                 self._ps_np[slot] = (psproc, vl, vr)
                 out[slot, t] = pl * (1.0 / 32768.0)
                 out[pair, t] = pr * (1.0 / 32768.0)
+        if tr is not None:
+            tr.close(span)
         return out
 
     def _seed_ps_np(self, slot: int, ctx: dict, seeds: dict, proc):
@@ -1712,64 +1838,40 @@ class BatchDecoder:
         if not self.use_native:
             raise RuntimeError("decode_he_pipelined requires the native "
                                "parser (use step_he_raw)")
-        up_pool = concurrent.futures.ThreadPoolExecutor(1)
-        down_pool = concurrent.futures.ThreadPoolExecutor(1)
-        up_fut = down_fut = None
-        slot = 0
         mesh = self._mesh(mesh)
 
-        def upload_dispatch(host):
-            parsed, dense, ctx = host
-            core_pcm = self._device_step(parsed, mesh=mesh)
-            pcm2, seeds = self._sbr_dispatch(
-                core_pcm, *self._sbr_upload(dense, ctx, mesh), ctx,
-                out_int16, mesh)
+        def host(chunk, slot, k):
+            return self._he_host_phase(chunk, compact, buf_slot=slot,
+                                       chunk_id=k)
+
+        def upload(phase, k):
+            parsed, dense, ctx = phase
+            core_pcm = self._spanned("core_step", k, self._device_step,
+                                     parsed, mesh=mesh)
+            planes = self._spanned("sbr_upload", k, self._sbr_upload, dense,
+                                   ctx, mesh)
+            pcm2, seeds = self._spanned("sbr_dispatch", k, self._sbr_dispatch,
+                                        core_pcm, *planes, ctx, out_int16,
+                                        mesh)
             return pcm2, seeds, ctx, core_pcm
 
-        def download(args):
-            return self._sbr_download(*args)
+        def download(args, k):
+            return self._spanned("download", k, self._sbr_download, *args)
 
-        try:
-            self._pipeline_active = True
-            for chunk in chunk_iter:
-                readoptable = hasattr(self, "_sbr_np_sticky") and any(
+        def unsettled():
+            # resets and re-adoption touch state both workers use (overlap,
+            # SBR device state, replay processors)
+            return self._deferred_resets or (
+                hasattr(self, "_sbr_np_sticky") and any(
                     self._sbr_np_sticky[s] and s not in self._readopt_blocked
-                    for s in range(self.C))
-                if self._deferred_resets or readoptable:
-                    # resets and re-adoption touch state both workers use
-                    # (overlap, SBR device state, replay processors): drain
-                    # everything in flight first
-                    if up_fut is not None:
-                        args = up_fut.result()
-                        up_fut = None
-                        if down_fut is not None:
-                            yield down_fut.result()
-                        down_fut = down_pool.submit(download, args)
-                    if down_fut is not None:
-                        yield down_fut.result()
-                        down_fut = None
-                    self._apply_deferred_resets()
-                    self._readopt_sticky()
-                host = self._he_host_phase(chunk, compact, buf_slot=slot)
-                if up_fut is not None:
-                    args = up_fut.result()
-                    if down_fut is not None:
-                        yield down_fut.result()
-                    down_fut = down_pool.submit(download, args)
-                up_fut = up_pool.submit(upload_dispatch, host)
-                slot ^= 1
-            if up_fut is not None:
-                args = up_fut.result()
-                if down_fut is not None:
-                    yield down_fut.result()
-                down_fut = down_pool.submit(download, args)
-            if down_fut is not None:
-                yield down_fut.result()
-        finally:
-            self._pipeline_active = False
-            up_pool.shutdown(wait=True)
-            down_pool.shutdown(wait=True)
+                    for s in range(self.C)))
+
+        def settle():
             self._apply_deferred_resets()
+            self._readopt_sticky()
+
+        yield from self._pipeline(chunk_iter, host, upload, download,
+                                  unsettled, settle)
 
     # -- stream reset --------------------------------------------------------
     def request_reset(self, idx: int, config: StreamConfig | None = None

@@ -25,8 +25,7 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "host/sbr_pack.py", "host/sbr_decode.py", "host/ps_decode.py",
           "host/ps_pack.py", "host/mp4.py", "host/native_write.py",
           "encode.py", "encode_he.py", "aurora.py",
-          "kernels/windows.py", "runtime/pack.py", "runtime/stats.py",
-          "testing/encoder.py",
+          "kernels/windows.py", "runtime/pack.py", "testing/encoder.py",
           "testing/specgen.py", "testing/streams.py",
           "testing/sbr_encoder.py", "testing/mp4mux.py",
           "testing/ffmpeg_oracle.py")
