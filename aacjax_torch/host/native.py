@@ -1,13 +1,15 @@
-"""ctypes binding to the native parser (native/libaacparse.so).
+"""ctypes binding to the port's native parser
+(aacjax_torch/native/libaacparse.so, the port's copy of native/aacparse.cc
+whose parse also writes the block-scaled int16 spectra).
 
 One call parses every stream of a chunk and writes directly into the
 caller's [C, T, ...] batch buffers (zero copies); the call releases the
 GIL.
 
 Falls back cleanly: available() is False when the library hasn't been
-built (`make -C native`); a stream that needs features the native path
-delegates (CCE elements) gets status ERR_FALLBACK and the runtime
-reparses the chunk with the Python parser.
+built (`make -C aacjax_torch/native`); a stream that needs features the
+native path delegates (CCE elements) gets status ERR_FALLBACK and the
+runtime reparses the chunk with the Python parser.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import pathlib
 
 import numpy as np
 
-_LIB_PATH = (pathlib.Path(__file__).resolve().parent.parent.parent
+_LIB_PATH = (pathlib.Path(__file__).resolve().parent.parent
              / "native" / "libaacparse.so")
 
 FRAME = 1024
@@ -40,7 +42,7 @@ class NativeParseError(Exception):
 
 
 _lib = None
-_ABI_VERSION = 9  # must match native aacparse_version()
+_ABI_VERSION = 10  # must match native aacparse_version()
 
 
 def _load():
@@ -87,6 +89,7 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p,                  # pred meta/used
         ctypes.c_void_p, ctypes.c_void_p,                  # ltp meta/used
         ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,                  # i16 / scales
     ]
     _lib = lib
     return lib
@@ -197,7 +200,8 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
                      tables_pack: dict | None = None,
                      want_qsf: bool = False,
                      want_pred: bool = False,
-                     want_ltp: bool = False
+                     want_ltp: bool = False,
+                     want_i16: bool = False
                      ) -> tuple[np.ndarray, bool]:
     """One C call parsing every stream's chunk into final f32 spectra.
 
@@ -213,13 +217,18 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
     HE-AAC fast path, where block-scaled i16 would lose precision on
     near-empty patch source bands).
 
+    want_i16=True also fills out.spec_i16 / out.spec_scale with what
+    compact_spec(out) would give, each stream's rows converted by the
+    parse thread that wrote them.
+
     Returns (stream_status [n_streams] int32, has_tns).  Status 0 = ok,
     3 = needs Python fallback (capacity overflow), other nonzero = the
     stream hit a bitstream error: the corrupt frame is concealed as
     silence and the remaining frames still decode (see aacparse.cc)."""
     lib = _load()
     if lib is None:
-        raise RuntimeError("native parser not built (make -C native)")
+        raise RuntimeError("native parser not built "
+                           "(make -C aacjax_torch/native)")
     n_streams = len(payloads_per_stream)
     if tables_pack is None:
         from aacjax_torch.host.asc import StreamConfig
@@ -251,6 +260,10 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
         out.ensure_pred()
     if want_ltp:
         out.ensure_ltp()
+    if want_i16 and out.spec_i16 is None:
+        out.spec_i16 = np.zeros((out.C, out.T, out.F), np.int16)
+        out.spec_scale = np.zeros((out.C, out.T, out.F // I16_BLOCK),
+                                  np.float32)
     consumed = np.zeros(max(len(parts), 1), np.int64)
     fil_sbr = np.zeros((max(len(parts), 1), 4, 3), np.int64)
     fil_drc = np.zeros(max(len(parts), 1), np.int64)
@@ -285,7 +298,9 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
         _ptr(out.pred_used) if want_pred else ctypes.c_void_p(0),
         _ptr(out.ltp_meta) if want_ltp else ctypes.c_void_p(0),
         _ptr(out.ltp_used) if want_ltp else ctypes.c_void_p(0),
-        errbuf, len(errbuf))
+        errbuf, len(errbuf),
+        _ptr(out.spec_i16) if want_i16 else ctypes.c_void_p(0),
+        _ptr(out.spec_scale) if want_i16 else ctypes.c_void_p(0))
     if code != ERR_OK:
         raise NativeParseError(code, errbuf.value.decode(), -1)
     out.qsf_ok = qsf_ok if want_qsf else None

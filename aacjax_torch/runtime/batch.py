@@ -57,7 +57,9 @@ place, so a decoder stays one decoder whatever meshes its calls use.
 
 Measurement (runtime/stats.py): `stats` keeps running totals; setting
 `trace` to a `Trace()` records spans at the serving layers' boundaries
-(`parse` with `parse.wait_h2d`, `parse.native`, `parse.compact`;
+(`parse` with `parse.wait_h2d`, `parse.native`, and `parse.compact`
+only where a DRC fold sends the compact spectra through a pass of their
+own, counted `compact_separate` against `compact_fused`;
 `he_host` with `he.begin`, the core `parse`, `he.sbr`, `he.stage`;
 `wait.upload` / `wait.download` on the main thread; `upload_dispatch`, or
 `core_step`, `sbr_upload` and `sbr_dispatch`, on the upload worker;
@@ -608,7 +610,11 @@ class BatchDecoder:
         stream of the chunk could take them (native qsf_ok: no PNS,
         intensity, M/S, coupling or escape > 8191) and no DRC gain applies,
         else the exact f32 spectra do.  The SBR FIL records land in
-        _last_fil_sbr."""
+        _last_fil_sbr.
+
+        compact=True has the parse threads write the block-scaled int16
+        spectra as they go; a chunk whose DRC gains are folded into the f32
+        spectra after the parse converts them again in a pass of its own."""
         t0 = time.perf_counter_ns()
         if self._any_main:
             compact = False
@@ -629,12 +635,13 @@ class BatchDecoder:
             payloads_per_stream, self._sample_indices, self._chan_configs,
             self._base_slots, self._n_slots, self.prev_shapes, arrays,
             tables_pack=self._tables_pack, want_qsf=qsf,
-            want_pred=self._any_main)
+            want_pred=self._any_main, want_i16=compact)
         self._last_status = status
         self._last_consumed = arrays.consumed_bits
         self._last_fil_sbr = arrays.fil_sbr
         use_qsf = qsf and bool(arrays.qsf_ok.all())
-        if self.drc_scale > 0 and arrays.fil_drc.any():
+        drc = self.drc_scale > 0 and bool(arrays.fil_drc.any())
+        if drc:
             self._apply_native_drc(payloads_per_stream, arrays)
             use_qsf = False   # DRC gains fold into the f32 spectra only
         for i, st in enumerate(self.streams):
@@ -659,9 +666,14 @@ class BatchDecoder:
         if use_qsf:
             keys = ["spec_q", "spec_sf", "meta"]
         elif compact:
-            # writes into the host tensors
-            self._spanned("parse.compact", chunk_id, native.compact_spec,
-                          arrays)
+            # the parse threads wrote the int16 spectra into the host
+            # tensors; a DRC fold changed the f32 spectra after them
+            if drc:
+                self._spanned("parse.compact", chunk_id, native.compact_spec,
+                              arrays)
+            if tr is not None:
+                tr.count("compact_separate" if drc else "compact_fused",
+                         chunk_id)
             keys = ["spec_i16", "spec_scale", "meta"]
         else:
             keys = ["spec", "meta"]

@@ -22,7 +22,7 @@ pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native parser not built")
 
 T_LC, T_HE = 8, 4
-PARSE_PARTS = ("parse.wait_h2d", "parse.native", "parse.compact")
+PARSE_PARTS = ("parse.wait_h2d", "parse.native")
 HE_PARTS = ("he.begin", "parse", "he.sbr", "he.stage")
 
 
@@ -114,7 +114,9 @@ def test_tracing_off_records_nothing(route, he_corpus, monkeypatch):
 
 def test_lc_pipelined_spans_per_chunk():
     """Each chunk of decode_pipelined has one span of each kind under its
-    id, the parse's parts inside the parse."""
+    id, the parse's parts inside the parse; the parse threads wrote the
+    compact spectra (`compact_fused`), so no chunk has a `parse.compact`
+    pass."""
     dec, chunks = _lc()
     dec.trace = Trace()
     _serve(dec, chunks, "lc")
@@ -134,6 +136,8 @@ def test_lc_pipelined_spans_per_chunk():
             spans["wait.upload"][k].t0_ns
     assert all(s.t1_ns >= s.t0_ns > 0 for s in dec.trace.spans)
     assert not dec._pending_steps
+    assert not _by_chunk(dec.trace, "parse.compact")
+    assert dec.trace.counters == {("compact_fused", k): 1 for k in ids}
 
 
 def test_he_pipelined_spans_and_counters(he_corpus):
