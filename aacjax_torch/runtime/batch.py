@@ -65,7 +65,10 @@ own, counted `compact_separate` against `compact_fused`;
 `core_step`, `sbr_upload` and `sbr_dispatch`, on the upload worker;
 `download` with `download.replay` on the download worker) and the SBR
 loop's counters (`sbr_parse_ns`, `sbr_pack_ns`, `sbr_payloads`,
-`sbr_cache_lookups`, `_hits`, `_inserts`), each under its chunk id.
+`sbr_cache_lookups`, `_hits`, `_inserts`), each under its chunk id.  A
+call given a mesh also records the mesh's fan-out on the upload worker:
+`mesh.h2d` a shard on CUDA (the shard's copies up issued) and
+`mesh.dispatch` (every stream shard's step issued).
 """
 from __future__ import annotations
 
@@ -476,6 +479,11 @@ class BatchDecoder:
             done[dev].record(self._streams(dev)[1])
         return done
 
+    def _traces_mesh(self, mesh: meshlib.Mesh) -> bool:
+        """Whether a call on `mesh` records the mesh's spans: tracing, and a
+        mesh given (not self._home)."""
+        return self.trace is not None and mesh is not self._home
+
     def _set_overlap(self, overlap: np.ndarray) -> None:
         ov = torch.from_numpy(np.array(overlap, np.float32))   # a copy
         if ov.shape != (self.C, self._ov_width):
@@ -768,12 +776,15 @@ class BatchDecoder:
         host = meshlib.spec_batch_shardings(mesh, arrs, lay)
         if not self._cuda:
             return {"_shards": meshlib.Shards(host, lay), **facts}
+        tr = self.trace if self._traces_mesh(mesh) else None
         events, parts = [], []
         for i, row in enumerate(host):
             parts.append([])
             for k, shard in enumerate(row):
                 dev = mesh.devices[i][k]
                 h2d, compute, _ = self._streams(dev)
+                span = (tr.open("mesh.h2d", facts["_chunk_id"])
+                        if tr is not None else None)
                 with torch.cuda.stream(h2d):
                     d = {key: _pinned(v).to(dev, non_blocking=True)
                          for key, v in shard.items()}
@@ -784,6 +795,8 @@ class BatchDecoder:
                     v.record_stream(compute)
                 events.append(ev)
                 parts[i].append(d)
+                if span is not None:
+                    tr.close(span)
         self._h2d_done[facts["_slot"]] = events
         return {"_shards": meshlib.Shards(parts, lay), **facts}
 
@@ -823,8 +836,12 @@ class BatchDecoder:
         facts = {k: batch.pop(k) for k in list(batch) if k.startswith("_")}
         flags = self._spec_flags(facts, out_int16, use_pallas)
         t0 = time.perf_counter()
-        pcm = self._run_step(meshlib.sharded_decode_spec_step(flags, mesh),
-                             shards, flags, mesh)
+        step = meshlib.sharded_decode_spec_step(flags, mesh)
+        if self._traces_mesh(mesh):     # every stream shard's step issued
+            pcm = self._spanned("mesh.dispatch", facts["_chunk_id"],
+                                self._run_step, step, shards, flags, mesh)
+        else:
+            pcm = self._run_step(step, shards, flags, mesh)
         self._pend(t0, facts, self._record_done(mesh.device_set))
         return pcm
 

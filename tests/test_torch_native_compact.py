@@ -8,6 +8,7 @@ and on the parse's edge cases; which chunks of
 `BatchDecoder._parse_native` take which path; and the two libraries'
 versions."""
 import ctypes
+import json
 import pathlib
 import shutil
 
@@ -112,8 +113,12 @@ def _random_lc(F: int, n: int, seed: int) -> list[bytes]:
 
 @pytest.fixture(scope="module")
 def corpus_streams():
-    paths = sorted(CORPUS.glob("lc256k-*.aac"))
-    assert len(paths) == 16
+    """The LC configuration's streams (the four-card configuration's
+    corpus shares their files and adds its own beside them)."""
+    cfg = json.loads((REPO / "portbench" / "configs"
+                      / "aac-lc-256k-stereo-44k.json").read_text())
+    paths = [REPO / f["file"] for f in cfg["corpus"]["files"]]
+    assert len(paths) == 16 and all(p.parent == CORPUS for p in paths)
     return [TI.adts_payloads(p.read_bytes()) for p in paths]
 
 
