@@ -42,7 +42,7 @@ class NativeParseError(Exception):
 
 
 _lib = None
-_ABI_VERSION = 10  # must match native aacparse_version()
+_ABI_VERSION = 11  # must match native aacparse_version()
 
 
 def _load():
@@ -90,6 +90,7 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p,                  # ltp meta/used
         ctypes.c_char_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,                  # i16 / scales
+        ctypes.c_void_p,                                   # parse counts
     ]
     _lib = lib
     return lib
@@ -201,7 +202,8 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
                      want_qsf: bool = False,
                      want_pred: bool = False,
                      want_ltp: bool = False,
-                     want_i16: bool = False
+                     want_i16: bool = False,
+                     counts: np.ndarray | None = None
                      ) -> tuple[np.ndarray, bool]:
     """One C call parsing every stream's chunk into final f32 spectra.
 
@@ -220,6 +222,10 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
     want_i16=True also fills out.spec_i16 / out.spec_scale with what
     compact_spec(out) would give, each stream's rows converted by the
     parse thread that wrote them.
+
+    counts (int64 [3], optional) receives the parse's band counts: bands
+    decoded straight into the f32 rows, bands on the general path, and
+    scale-factor gains that missed the table.
 
     Returns (stream_status [n_streams] int32, has_tns).  Status 0 = ok,
     3 = needs Python fallback (capacity overflow), other nonzero = the
@@ -300,7 +306,8 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
         _ptr(out.ltp_used) if want_ltp else ctypes.c_void_p(0),
         errbuf, len(errbuf),
         _ptr(out.spec_i16) if want_i16 else ctypes.c_void_p(0),
-        _ptr(out.spec_scale) if want_i16 else ctypes.c_void_p(0))
+        _ptr(out.spec_scale) if want_i16 else ctypes.c_void_p(0),
+        _ptr(counts) if counts is not None else ctypes.c_void_p(0))
     if code != ERR_OK:
         raise NativeParseError(code, errbuf.value.decode(), -1)
     out.qsf_ok = qsf_ok if want_qsf else None

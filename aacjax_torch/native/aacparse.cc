@@ -1,10 +1,19 @@
 // Native AAC-LC bitstream parser: the host-side hot path of aacjax_torch.
 //
 // The port's own copy of native/aacparse.cc, which the JAX package keeps
-// as it is.  It differs in one respect: aacparse_batch_spec also writes
-// the block-scaled int16 spectra (spec_i16, spec_scale), each stream's
-// rows converted by the thread that parsed them, so the compact transfer
-// needs no pass of its own after the parse (ABI version 10).
+// as it is.  Its outputs are the same bit for bit; it differs in how it
+// gets them:
+//  - aacparse_batch_spec also writes the block-scaled int16 spectra
+//    (spec_i16, spec_scale), each stream's rows converted by the thread
+//    that parsed them, so the compact transfer needs no pass of its own
+//    after the parse;
+//  - a band's gain 2^((i - 200) / 4) is read from a table built once, and
+//    the spectral decode runs one loop per codebook kind that writes each
+//    bin's inverse_quant(q) * gain straight into the f32 row, with no
+//    quantised scratch and no second pass over the bins (the general
+//    path, quantised values then finalize_spec, stays for channels with
+//    pulse data, coupling channels and chunks that ship q/sf);
+//  - it counts how often each path ran (parse_counts, ABI version 11).
 //
 // Parses raw_data_blocks (SCE/CPE/LFE/DSE/FIL elements) for a whole
 // multi-stream chunk in one call and emits what the device consumes:
@@ -126,6 +135,19 @@ struct BitReader {
     return static_cast<uint32_t>(cache >> (64 - n));
   }
 
+  // to bit `pos` (<= nbits) of the data
+  void seek(int64_t pos) {
+    bytepos = pos >> 3;
+    cache = 0;
+    ncached = 0;
+    int rem = static_cast<int>(pos & 7);
+    if (rem) {
+      refill();
+      cache <<= rem;
+      ncached -= rem;
+    }
+  }
+
   bool advance(int64_t n) {
     if (bitpos() + n > nbits) return false;
     if (n <= ncached) {
@@ -171,6 +193,7 @@ struct HuffLut {
   // < 0 (other) -> ~l2_block_offset
   int32_t* l1 = nullptr;
   int32_t* l2 = nullptr;   // entries: (len << 16) | row_idx, or -1 invalid
+  size_t l2n = 0;          // entries in l2
 
   void build(const BookDef& def) {
     rows = def.rows;
@@ -209,9 +232,9 @@ struct HuffLut {
           ++nblocks;
         }
       }
-      l2 = new int32_t[static_cast<size_t>(nblocks) * blk];
-      for (size_t i = 0; i < static_cast<size_t>(nblocks) * blk; ++i)
-        l2[i] = -1;
+      l2n = static_cast<size_t>(nblocks) * blk;
+      l2 = new int32_t[l2n];
+      for (size_t i = 0; i < l2n; ++i) l2[i] = -1;
       for (int i = 0; i < n; ++i) {
         int len = rows[i * stride + 0];
         if (len <= l1bits) continue;
@@ -246,25 +269,76 @@ struct HuffLut {
   const int32_t* values(int idx) const { return rows + idx * stride + 2; }
 };
 
-HuffLut g_books[12];
-float g_iq_lut[8192];
-bool g_init_done = false;
+// A spectral codebook's table for the per-codebook loops: HuffLut's two
+// levels, with one 8-byte entry a codeword that holds all the loop needs.
+struct SpecEntry {
+  int8_t v[4];    // the codeword's values (an unsigned book's magnitudes)
+  uint8_t len;    // its bits; 0 = not a codeword of <= l1bits bits
+  uint8_t nz;     // its nonzero values: the sign bits of an unsigned book
+  uint16_t sub;   // with len 0: 0 = no codeword, else 1 + its L2 block
+};
 
-void ensure_init() {
-  if (g_init_done) return;
+struct SpecLut {
+  int l1bits = 0;
+  int maxlen = 0;
+  int extbits = 0;
+  uint64_t extmask = 0;
+  SpecEntry* l1 = nullptr;
+  SpecEntry* l2 = nullptr;
+
+  static SpecEntry entry(const HuffLut& h, int32_t e) {
+    SpecEntry out{};
+    const int32_t* v = h.values(e & 0xFFFF);
+    for (int j = 0; j < h.width; ++j) {
+      out.v[j] = static_cast<int8_t>(v[j]);
+      out.nz += v[j] != 0;
+    }
+    out.len = static_cast<uint8_t>(e >> 16);
+    return out;
+  }
+
+  void build(const HuffLut& h) {
+    l1bits = h.l1bits;
+    maxlen = h.maxlen;
+    extbits = h.extbits;
+    extmask = (uint64_t{1} << extbits) - 1;
+    const size_t l1n = size_t{1} << l1bits;
+    l1 = new SpecEntry[l1n]();
+    for (size_t i = 0; i < l1n; ++i) {
+      const int32_t e = h.l1[i];
+      if (e >= 0)
+        l1[i] = entry(h, e);
+      else if (e != INT32_MIN)
+        l1[i].sub = static_cast<uint16_t>(1 + (~e >> extbits));
+    }
+    l2 = new SpecEntry[h.l2n + 1]();
+    for (size_t i = 0; i < h.l2n; ++i)
+      if (h.l2[i] >= 0) l2[i] = entry(h, h.l2[i]);
+  }
+};
+
+// Scale-factor gains 2^((i - 200) / 4) for every index a valid stream
+// gives (100..355); an index outside the table (a corrupt stream's
+// scalefactor below -100) calls pow as before and is counted.
+constexpr int kGainTable = 512;
+
+HuffLut g_books[12];
+SpecLut g_spec[11];
+float g_iq_lut[8192];
+float g_gain_lut[kGainTable];
+
+void init_tables() {
   for (int i = 0; i < 12; ++i) g_books[i].build(kBooks[i]);
+  for (int i = 0; i < 11; ++i) g_spec[i].build(g_books[i]);
   for (int i = 0; i < 8192; ++i)
     g_iq_lut[i] = static_cast<float>(pow(static_cast<double>(i), 4.0 / 3.0));
-  g_init_done = true;
+  for (int i = 0; i < kGainTable; ++i)
+    g_gain_lut[i] = static_cast<float>(pow(2.0, (i - 200) / 4.0));
 }
 
-// sign(q) * |q|^(4/3) in float32 (escape values beyond the LUT computed
-// directly — SURVEY.md §7 quirk 5)
-inline float inverse_quant(int32_t q) {
-  uint32_t a = q < 0 ? static_cast<uint32_t>(-q) : static_cast<uint32_t>(q);
-  float m = a < 8192 ? g_iq_lut[a]
-                     : static_cast<float>(pow(static_cast<double>(a), 4.0 / 3.0));
-  return q < 0 ? -m : m;
+void ensure_init() {
+  static const bool done = (init_tables(), true);
+  (void)done;
 }
 
 // band types
@@ -280,10 +354,10 @@ enum { ONLY_LONG = 0, LONG_START = 1, EIGHT_SHORT = 2, LONG_STOP = 3 };
 enum { SCE_ELEM = 0, CPE_ELEM = 1, CCE_ELEM = 2, LFE_ELEM = 3,
        DSE_ELEM = 4, PCE_ELEM = 5, FIL_ELEM = 6, END_ELEM = 7 };
 
-inline float sf_gain_spectrum(int sf) {
-  return static_cast<float>(pow(2.0, (sf - 100) / 4.0));
-}
-inline float sf_gain_index(int table_index) {  // 2^((i-200)/4)
+inline float sf_gain_index(int table_index, int* misses) {  // 2^((i-200)/4)
+  if (static_cast<unsigned>(table_index) < kGainTable)
+    return g_gain_lut[table_index];
+  ++*misses;
   return static_cast<float>(pow(2.0, (table_index - 200) / 4.0));
 }
 
@@ -321,6 +395,13 @@ struct TnsSide {
   float coef[8][4][kTnsOrder] = {{{0}}};
 };
 
+// per-channel dense scratch of the general spectral path
+struct ChannelScratch {
+  int32_t quant[kFrameLen];
+  float scale[kFrameLen];
+  float noise[kFrameLen];
+};
+
 struct Channel {
   ICSInfo info;
   int global_gain = 0;
@@ -331,10 +412,19 @@ struct Channel {
   // 2^((sf-100)/4)) for the exact-i16 q/sf transfer; only valid where
   // band_types is a spectrum book
   int16_t sf_idx[kMaxSections] = {0};
-  // dense outputs (pointers into caller arrays)
+  // dense outputs: the general path's scratch (quantised values, gains,
+  // PNS noise, which finalize_spec combines), and the f32 row the fused
+  // path writes when row is set and the channel has no pulse data
   int32_t* quant = nullptr;
   float* scale = nullptr;
   float* noise = nullptr;
+  float* row = nullptr;
+  bool fused = false;          // decode_spectral wrote row itself
+  // bands decoded into row, bands on the general path (PNS, intensity,
+  // every band of a general channel), gains that missed the table
+  int n_fused_bands = 0;
+  int n_general_bands = 0;
+  int n_gain_misses = 0;
   TnsSide tns;
   bool tns_present = false;
   // pulse
@@ -342,6 +432,15 @@ struct Channel {
   int pulse_count = 0;
   int pulse_offset[4] = {0};
   int pulse_amp[4] = {0};
+
+  // before each decode (a coupling channel's Channel is reused)
+  void attach(ChannelScratch* s, float* out_row) {
+    quant = s->quant;
+    scale = s->scale;
+    noise = s->noise;
+    row = out_row;
+    n_fused_bands = n_general_bands = n_gain_misses = 0;
+  }
 };
 
 struct StreamConfig {
@@ -516,7 +615,7 @@ bool decode_scale_factors(BitReader* br, Channel* ch, ParseError* err) {
           if (d == INT32_MIN) FAIL(err, ERR_BITSTREAM, "bad sf codeword");
           offset[2] += d;
           int tmp = offset[2] < -155 ? -155 : (offset[2] > 100 ? 100 : offset[2]);
-          ch->sf_gain[idx] = sf_gain_index(-tmp + 200);
+          ch->sf_gain[idx] = sf_gain_index(-tmp + 200, &ch->n_gain_misses);
         }
       } else if (bt == NOISE_BT) {
         for (; i < run_end; ++i, ++idx) {
@@ -529,7 +628,7 @@ bool decode_scale_factors(BitReader* br, Channel* ch, ParseError* err) {
             offset[1] += d;
           }
           int tmp = offset[1] < -100 ? -100 : (offset[1] > 155 ? 155 : offset[1]);
-          ch->sf_gain[idx] = -sf_gain_index(tmp + 200);
+          ch->sf_gain[idx] = -sf_gain_index(tmp + 200, &ch->n_gain_misses);
         }
       } else {
         for (; i < run_end; ++i, ++idx) {
@@ -539,7 +638,8 @@ bool decode_scale_factors(BitReader* br, Channel* ch, ParseError* err) {
           if (offset[0] > 255)
             FAIL(err, ERR_BITSTREAM, "Scalefactor out of range: %d", offset[0]);
           ch->sf_idx[idx] = static_cast<int16_t>(offset[0]);
-          ch->sf_gain[idx] = sf_gain_index(offset[0] - 100 + 200);
+          ch->sf_gain[idx] =
+              sf_gain_index(offset[0] - 100 + 200, &ch->n_gain_misses);
         }
       }
       if (!ok) FAIL(err, ERR_BITSTREAM, "scale_factors: eof");
@@ -603,9 +703,235 @@ bool decode_tns(BitReader* br, Channel* ch, ParseError* err) {
   return true;
 }
 
+// q's sign onto m (>= 0) by its bit: no branch on the data
+inline float with_sign(float m, int32_t q) {
+  uint32_t u;
+  memcpy(&u, &m, 4);
+  u ^= static_cast<uint32_t>(q) & 0x80000000u;
+  memcpy(&m, &u, 4);
+  return m;
+}
+
+// sign(q) * |q|^(4/3) in float32 (escape values beyond the LUT computed
+// directly — SURVEY.md §7 quirk 5)
+inline float inverse_quant(int32_t q) {
+  uint32_t a = q < 0 ? static_cast<uint32_t>(-q) : static_cast<uint32_t>(q);
+  float m = a < 8192 ? g_iq_lut[a]
+                     : static_cast<float>(pow(static_cast<double>(a), 4.0 / 3.0));
+  return with_sign(m, q);
+}
+
+// Where a band's values go.  FusedOut: inverse_quant(q) * gain + 0.0f, the
+// value finalize_spec gives the bin (its noise term is +0 there, which
+// turns a -0 product into +0), into the f32 row.  QuantOut: q into the
+// general path's scratch.
+struct FusedOut {
+  float* p;
+  float gain;
+  // kEscape false: |q| <= 16, inside the LUT
+  template <bool kEscape = true>
+  inline void put(int at, const int32_t* q, int n) const {
+    for (int j = 0; j < n; ++j) {
+      float x;
+      if (kEscape) {
+        x = inverse_quant(q[j]);
+      } else {
+        x = with_sign(g_iq_lut[q[j] < 0 ? -q[j] : q[j]], q[j]);
+      }
+      p[at + j] = x * gain + 0.0f;
+    }
+  }
+};
+struct QuantOut {
+  int32_t* p;
+  template <bool kEscape = true>
+  inline void put(int at, const int32_t* q, int n) const {
+    for (int j = 0; j < n; ++j) p[at + j] = q[j];
+  }
+};
+
+enum SpecKind { QUAD_SIGNED, QUAD_UNSIGNED, PAIR_SIGNED, PAIR_UNSIGNED,
+                ESCAPE };
+
+// 64 bits from bit `pos` of the frame, MSB first, zeros past its end
+inline uint64_t bits_at(const uint8_t* data, int64_t nbytes, int64_t pos) {
+  const int64_t byte = pos >> 3;
+  uint64_t w;
+  if (__builtin_expect(byte + 8 <= nbytes, 1)) {
+    memcpy(&w, data + byte, 8);
+    w = __builtin_bswap64(w);
+  } else {
+    w = 0;
+    for (int64_t i = byte; i < nbytes && i < byte + 8; ++i)
+      w |= static_cast<uint64_t>(data[i]) << (56 - 8 * (i - byte));
+  }
+  return w << (pos & 7);
+}
+
+// One band of one codebook kind (its windows `stride` bins apart), read
+// from the bit position with no check inside: a codeword and its sign
+// bits come from one 64-bit load, which reads zeros past the frame.
+// Returns false on a bad codeword or an over-long escape, or when the band
+// ran past the frame, leaving *br where it was; the caller then decodes
+// the band again, checked.
+template <int kKind, class Out>
+bool spectral_band_fast(BitReader* br, const SpecLut& lut, int width,
+                        int windows, int stride, const Out& out) {
+  constexpr int kNum = kKind <= QUAD_UNSIGNED ? 4 : 2;
+  constexpr bool kUnsigned = kKind == QUAD_UNSIGNED || kKind >= PAIR_UNSIGNED;
+  const uint8_t* data = br->data;
+  const int64_t nbytes = br->nbytes_;
+  int64_t pos = br->bitpos();
+  const SpecEntry* l1 = lut.l1;
+  const int sh1 = 64 - lut.l1bits;
+  for (int w = 0; w < windows; ++w) {
+    for (int k = 0; k < width; k += kNum) {
+      const uint64_t c = bits_at(data, nbytes, pos);
+      SpecEntry e = l1[c >> sh1];
+      if (__builtin_expect(!e.len, 0)) {
+        if (!e.sub) return false;
+        e = lut.l2[(static_cast<size_t>(e.sub - 1) << lut.extbits)
+                   + ((c >> (64 - lut.maxlen)) & lut.extmask)];
+        if (!e.len) return false;
+      }
+      int32_t q[kNum];
+      for (int j = 0; j < kNum; ++j) q[j] = e.v[j];
+      if (kUnsigned) {
+        // the sign bits follow the codeword, MSB first, one for each
+        // nonzero value in order
+        const uint64_t signs = c << e.len;
+        int before = 0;
+        for (int j = 0; j < kNum; ++j) {
+          const int nonzero = q[j] != 0;
+          const int32_t neg = -static_cast<int32_t>(
+              (signs >> (63 - before)) & static_cast<uint64_t>(nonzero));
+          q[j] = (q[j] ^ neg) - neg;
+          before += nonzero;
+        }
+        pos += e.len + e.nz;
+      } else {
+        pos += e.len;
+      }
+      if (kKind == ESCAPE && (e.v[0] == 16 || e.v[1] == 16)) {
+        for (int j = 0; j < 2; ++j) {
+          if (e.v[j] != 16) continue;
+          uint64_t x = bits_at(data, nbytes, pos);
+          const int ones = __builtin_clzll(~x | 1);
+          if (ones > 20) return false;  // "escape too long", checked
+          pos += ones + 1;
+          const int n = 4 + ones;
+          x = bits_at(data, nbytes, pos);
+          const int32_t mag = static_cast<int32_t>(x >> (64 - n)) | (1 << n);
+          pos += n;
+          q[j] = q[j] < 0 ? -mag : mag;
+        }
+      }
+      out.template put<kKind == ESCAPE>(w * stride + k, q, kNum);
+    }
+  }
+  if (pos > br->nbits) return false;
+  br->seek(pos);
+  return true;
+}
+
+// The same band with every read checked: the reference's order of
+// reads, errors and messages.
+template <class Out>
+bool spectral_band_checked(BitReader* br, int hcb, int width, int windows,
+                           int stride, const Out& out, ParseError* err) {
+  bool ok = true;
+  const HuffLut& book = g_books[hcb - 1];
+  const int num = hcb >= FIRST_PAIR_BT ? 2 : 4;
+  const bool is_unsigned = (hcb == 3 || hcb == 4 || (hcb >= 7 && hcb <= 11));
+  for (int w = 0; w < windows; ++w) {
+    for (int k = 0; k < width; k += num) {
+      int row = book.decode(br);
+      if (row < 0) FAIL(err, ERR_BITSTREAM, "bad spectral codeword");
+      const int32_t* v = book.values(row);
+      int32_t buf[4];
+      for (int j = 0; j < num; ++j) buf[j] = v[j];
+      if (is_unsigned) {
+        // one batched read for all sign bits (MSB-first order ==
+        // the reference's sequential per-value reads)
+        int nz = 0;
+        for (int j = 0; j < num; ++j) nz += buf[j] != 0;
+        if (nz) {
+          uint32_t signs = br->read(nz, &ok);
+          int bit = nz - 1;
+          for (int j = 0; j < num; ++j) {
+            if (buf[j]) {
+              if ((signs >> bit) & 1) buf[j] = -buf[j];
+              --bit;
+            }
+          }
+        }
+      }
+      if (hcb == ESC_BT) {
+        for (int j = 0; j < 2; ++j) {
+          if (buf[j] == 16 || buf[j] == -16) {
+            int n = 4;
+            while (br->read(1, &ok)) {
+              if (++n > 24) FAIL(err, ERR_BITSTREAM, "escape too long");
+            }
+            int32_t mag = static_cast<int32_t>(br->read(n, &ok)) | (1 << n);
+            buf[j] = buf[j] < 0 ? -mag : mag;
+          }
+        }
+      }
+      out.put(w * stride + k, buf, num);
+    }
+  }
+  if (!ok) FAIL(err, ERR_BITSTREAM, "spectral: eof");
+  return true;
+}
+
+// One band of a spectrum codebook (1-11): the loop of its kind, and where
+// that loop gives up, the band again from its first bit, checked.
+template <class Out>
+bool spectral_band(BitReader* br, int hcb, int width, int windows,
+                   int stride, const Out& out, ParseError* err) {
+  const SpecLut& lut = g_spec[hcb - 1];
+  bool done;
+  switch (hcb) {
+    case 1: case 2:
+      done = spectral_band_fast<QUAD_SIGNED>(br, lut, width, windows, stride,
+                                             out);
+      break;
+    case 3: case 4:
+      done = spectral_band_fast<QUAD_UNSIGNED>(br, lut, width, windows,
+                                               stride, out);
+      break;
+    case 5: case 6:
+      done = spectral_band_fast<PAIR_SIGNED>(br, lut, width, windows, stride,
+                                             out);
+      break;
+    case ESC_BT:
+      done = spectral_band_fast<ESCAPE>(br, lut, width, windows, stride, out);
+      break;
+    default:
+      done = spectral_band_fast<PAIR_UNSIGNED>(br, lut, width, windows,
+                                               stride, out);
+      break;
+  }
+  if (done) return true;
+  return spectral_band_checked(br, hcb, width, windows, stride, out, err);
+}
+
+// The channel's spectral data.  Fused (ch->row set, no pulse data): each
+// band straight into the f32 row, PNS noise too, every other bin +0.
+// General: quantised values, gains and noise into the scratch, pulse data
+// applied, for finalize_spec (or emit_qsf) to read.
 bool decode_spectral(BitReader* br, Channel* ch, ParseError* err) {
   const ICSInfo& info = ch->info;
-  bool ok = true;
+  const int F = info.frame_len;
+  ch->fused = ch->row != nullptr && !ch->pulse_present;
+  if (ch->fused) {
+    memset(ch->row, 0, sizeof(float) * F);
+  } else {
+    memset(ch->quant, 0, sizeof(int32_t) * F);
+    memset(ch->scale, 0, sizeof(float) * F);
+    memset(ch->noise, 0, sizeof(float) * F);
+  }
   int32_t random_state = 0x1F2E3D4C;
   int group_off = 0;
   int idx = 0;
@@ -615,9 +941,11 @@ bool decode_spectral(BitReader* br, Channel* ch, ParseError* err) {
       int hcb = ch->band_types[idx];
       int off0 = group_off + info.swb_offsets[sfb];
       int width = info.swb_offsets[sfb + 1] - info.swb_offsets[sfb];
-      if (hcb == ZERO_BT || hcb == INTENSITY_BT || hcb == INTENSITY_BT2) {
-        // quant already zeroed
+      if (hcb == ZERO_BT) continue;
+      if (hcb == INTENSITY_BT || hcb == INTENSITY_BT2) {
+        ++ch->n_general_bands;  // zero here; apply_stereo fills them
       } else if (hcb == NOISE_BT) {
+        ++ch->n_general_bands;
         int off = off0;
         for (int grp = 0; grp < group_len; ++grp, off += info.short_len) {
           double energy = 0.0;
@@ -630,59 +958,32 @@ bool decode_spectral(BitReader* br, Channel* ch, ParseError* err) {
           }
           double scale = static_cast<double>(ch->sf_gain[idx]) / sqrt(energy);
           float fs = static_cast<float>(scale);
-          for (int k = 0; k < width; ++k) ch->noise[off + k] = vals[k] * fs;
-        }
-      } else {
-        const HuffLut& book = g_books[hcb - 1];
-        int num = hcb >= FIRST_PAIR_BT ? 2 : 4;
-        bool is_unsigned = (hcb == 3 || hcb == 4 || (hcb >= 7 && hcb <= 11));
-        int off = off0;
-        for (int grp = 0; grp < group_len; ++grp, off += info.short_len) {
-          for (int k = 0; k < width; k += num) {
-            int row = book.decode(br);
-            if (row < 0) FAIL(err, ERR_BITSTREAM, "bad spectral codeword");
-            const int32_t* v = book.values(row);
-            int32_t buf[4];
-            for (int j = 0; j < num; ++j) buf[j] = v[j];
-            if (is_unsigned) {
-              // one batched read for all sign bits (MSB-first order ==
-              // the reference's sequential per-value reads)
-              int nz = 0;
-              for (int j = 0; j < num; ++j) nz += buf[j] != 0;
-              if (nz) {
-                uint32_t signs = br->read(nz, &ok);
-                int bit = nz - 1;
-                for (int j = 0; j < num; ++j) {
-                  if (buf[j]) {
-                    if ((signs >> bit) & 1) buf[j] = -buf[j];
-                    --bit;
-                  }
-                }
-              }
-            }
-            if (hcb == ESC_BT) {
-              for (int j = 0; j < 2; ++j) {
-                if (buf[j] == 16 || buf[j] == -16) {
-                  int n = 4;
-                  while (br->read(1, &ok)) {
-                    if (++n > 24) FAIL(err, ERR_BITSTREAM, "escape too long");
-                  }
-                  int32_t mag = static_cast<int32_t>(br->read(n, &ok))
-                                | (1 << n);
-                  buf[j] = buf[j] < 0 ? -mag : mag;
-                }
-              }
-            }
-            for (int j = 0; j < num; ++j) ch->quant[off + k + j] = buf[j];
+          if (ch->fused) {  // + 0.0f: the +0 product finalize_spec adds
+            for (int k = 0; k < width; ++k)
+              ch->row[off + k] = vals[k] * fs + 0.0f;
+          } else {
+            for (int k = 0; k < width; ++k) ch->noise[off + k] = vals[k] * fs;
           }
-          for (int k = 0; k < width; ++k) ch->scale[off + k] = ch->sf_gain[idx];
         }
+      } else if (ch->fused) {
+        ++ch->n_fused_bands;
+        if (!spectral_band(br, hcb, width, group_len, info.short_len,
+                           FusedOut{ch->row + off0, ch->sf_gain[idx]}, err))
+          return false;
+      } else {
+        ++ch->n_general_bands;
+        if (!spectral_band(br, hcb, width, group_len, info.short_len,
+                           QuantOut{ch->quant + off0}, err))
+          return false;
+        int off = off0;
+        for (int grp = 0; grp < group_len; ++grp, off += info.short_len)
+          for (int k = 0; k < width; ++k) ch->scale[off + k] = ch->sf_gain[idx];
       }
-      if (!ok) FAIL(err, ERR_BITSTREAM, "spectral: eof");
     }
     group_off += group_len * info.short_len;
   }
-  // pulse application (spec-correct; SURVEY.md §7)
+  // pulse application (spec-correct; SURVEY.md §7); a channel with pulse
+  // data is always on the general path
   if (ch->pulse_present) {
     for (int i = 0; i < ch->pulse_count; ++i) {
       int32_t q = ch->quant[ch->pulse_offset[i]];
@@ -802,18 +1103,6 @@ bool decode_ics(BitReader* br, const StreamConfig& cfg, Channel* ch,
   return decode_spectral(br, ch, err);
 }
 
-// per-channel dense scratch for the spec path
-struct ChannelScratch {
-  int32_t quant[kFrameLen];
-  float scale[kFrameLen];
-  float noise[kFrameLen];
-  void reset() {
-    memset(quant, 0, sizeof(quant));
-    memset(scale, 0, sizeof(scale));
-    memset(noise, 0, sizeof(noise));
-  }
-};
-
 // ---------------------------------------------------------------------
 // Coupling channel element (cce.js:45-119; mirrors
 // aacjax/host/syntax.py decode_cce incl. the spec-correct divergences:
@@ -862,10 +1151,7 @@ bool decode_cce(BitReader* br, const StreamConfig& cfg, CCE* cce,
 
   int sign = static_cast<int>(br->read(1, &ok));
   double scale = kCceScale[br->read(2, &ok)];
-  scratch->reset();
-  cce->ch.quant = scratch->quant;
-  cce->ch.scale = scratch->scale;
-  cce->ch.noise = scratch->noise;
+  cce->ch.attach(scratch, nullptr);  // the general path, into cce->spec
   // coupling channels carry no cross-frame shape history (the reference
   // recreates the element per frame): prev_shape is always 0, matching
   // syntax.py decode_cce
@@ -1163,7 +1449,8 @@ extern "C" {
 // frame_len / 16] (nullable, both or neither): what aacjax_spec_to_i16
 // gives for every row of the stream's slots (all T rows, whatever the
 // stream's status), written by the thread that parsed the stream right
-// after its rows.
+// after its rows.  parse_counts (nullable) sums each thread's counts
+// after the join.
 int aacparse_batch_spec(
     const uint8_t* blob, const int64_t* frame_offsets,
     const int32_t* stream_frame_start,
@@ -1236,7 +1523,13 @@ int aacparse_batch_spec(
                              // sfb (host LTP fast path expands to bins)
     char* errbuf, int errbuf_len,
     int16_t* spec_i16,       // [total_slots, T, frame_len] out (nullable)
-    float* spec_scale) {     // [total_slots, T, frame_len / 16] out
+    float* spec_scale,       // [total_slots, T, frame_len / 16] out
+    int64_t* parse_counts) { // [3] out (nullable): bands decoded straight
+                             // into the f32 rows, bands on the general
+                             // path (PNS, intensity, and every band of a
+                             // channel with pulse data, of a coupling
+                             // channel or of a q/sf stream), and scale-
+                             // factor gains that missed the table
   ensure_init();
   (void)total_slots;
   if (errbuf_len > 0) errbuf[0] = '\0';
@@ -1250,11 +1543,17 @@ int aacparse_batch_spec(
     int32_t* time_idx; float* time_gain; int time_cap; int time_count;
   };
 
+  // counts: the thread's {fused bands, general bands, gain misses}
   auto parse_stream = [&](int s, CceArena* arena, bool* any_tns_out,
-                          char* ebuf, int eblen) {
+                          char* ebuf, int eblen, int64_t* counts) {
     static thread_local ChannelScratch scratch[2];
     static thread_local CCE cce_store[kMaxCce];
     bool any_tns = false;
+    auto count = [counts](const Channel& ch) {
+      counts[0] += ch.n_fused_bands;
+      counts[1] += ch.n_general_bands;
+      counts[2] += ch.n_gain_misses;
+    };
     stream_status[s] = OK;
     StreamConfig cfg{sample_index_arr[s], chan_config_arr[s]};
     cfg.profile = profile_arr[s];
@@ -1442,14 +1741,14 @@ int aacparse_batch_spec(
             return false;
           }
           Channel ch;
-          scratch[0].reset();
-          ch.quant = scratch[0].quant;
-          ch.scale = scratch[0].scale;
-          ch.noise = scratch[0].noise;
-          if (!decode_ics(&br, cfg, &ch, nullptr, prev_shapes[slot], &err))
-            return false;
           float* row = spec + (static_cast<size_t>(slot) * T + t) * F;
-          finalize_spec(ch, row);
+          // a q/sf stream keeps the quantised values for emit_qsf
+          ch.attach(&scratch[0], qsf_stream ? nullptr : row);
+          const bool decoded =
+              decode_ics(&br, cfg, &ch, nullptr, prev_shapes[slot], &err);
+          count(ch);
+          if (!decoded) return false;
+          if (!ch.fused) finalize_spec(ch, row);
           if (qsf_stream)
             qsf_stream = emit_qsf(
                 ch, spec_q + (static_cast<size_t>(slot) * T + t) * F,
@@ -1513,18 +1812,20 @@ int aacparse_batch_spec(
           }
           if (!ok2) { err = {ERR_BITSTREAM, "cpe: eof"}; return false; }
           Channel left, right;
-          scratch[0].reset();
-          scratch[1].reset();
-          left.quant = scratch[0].quant;
-          left.scale = scratch[0].scale;
-          left.noise = scratch[0].noise;
-          right.quant = scratch[1].quant;
-          right.scale = scratch[1].scale;
-          right.noise = scratch[1].noise;
-          if (!decode_ics(&br, cfg, &left, common_window ? &shared : nullptr,
-                          prev_shapes[slot], &err)) return false;
-          if (!decode_ics(&br, cfg, &right, common_window ? &shared : nullptr,
-                          prev_shapes[slot + 1], &err)) return false;
+          float* lrow = spec + (static_cast<size_t>(slot) * T + t) * F;
+          float* rrow = spec + (static_cast<size_t>(slot + 1) * T + t) * F;
+          left.attach(&scratch[0], qsf_stream ? nullptr : lrow);
+          right.attach(&scratch[1], qsf_stream ? nullptr : rrow);
+          bool decoded = decode_ics(&br, cfg, &left,
+                                    common_window ? &shared : nullptr,
+                                    prev_shapes[slot], &err);
+          count(left);
+          if (!decoded) return false;
+          decoded = decode_ics(&br, cfg, &right,
+                               common_window ? &shared : nullptr,
+                               prev_shapes[slot + 1], &err);
+          count(right);
+          if (!decoded) return false;
           if (common_window) {
             // the right channel shares the ICSInfo copy but carries ITS
             // OWN ltp_data (parsed above, may be absent)
@@ -1532,10 +1833,8 @@ int aacparse_batch_spec(
             right.info.ltp_coef = r_ltp_coef;
             right.info.ltp_used = r_ltp_used;
           }
-          float* lrow = spec + (static_cast<size_t>(slot) * T + t) * F;
-          float* rrow = spec + (static_cast<size_t>(slot + 1) * T + t) * F;
-          finalize_spec(left, lrow);
-          finalize_spec(right, rrow);
+          if (!left.fused) finalize_spec(left, lrow);
+          if (!right.fused) finalize_spec(right, rrow);
           apply_stereo(left, right, ms_used, mask_present, lrow, rrow);
           if (qsf_stream) {
             // M/S mixes dequantized values (not integers) and intensity
@@ -1617,7 +1916,9 @@ int aacparse_batch_spec(
               goto sfail;
             }
             CCE* cc = &cce_store[n_cces];
-            if (!decode_cce(&br, cfg, cc, &scratch[0], &err)) goto sfail;
+            const bool decoded = decode_cce(&br, cfg, cc, &scratch[0], &err);
+            count(cc->ch);
+            if (!decoded) goto sfail;
             qsf_stream = false;  // coupling writes fused f32 spectra
             finalize_spec(cc->ch, cc->spec);
             cc->id = eid;
@@ -1818,11 +2119,12 @@ int aacparse_batch_spec(
   if (nthreads < 1) nthreads = 1;
 
   bool any_tns = false;
+  std::vector<int64_t> counts(static_cast<size_t>(nthreads) * 3, 0);
   if (nthreads == 1) {
     CceArena arena{cce_post_idx, cce_post_gain, post_cap, 0,
                    cce_time_idx,  cce_time_gain, time_cap, 0};
     for (int s = 0; s < n_streams; ++s) {
-      parse_stream(s, &arena, &any_tns, errbuf, errbuf_len);
+      parse_stream(s, &arena, &any_tns, errbuf, errbuf_len, counts.data());
       compact_stream(s);
     }
     cce_counts[0] = arena.post_count;
@@ -1853,10 +2155,12 @@ int aacparse_batch_spec(
           static_cast<int64_t>(n_streams) * (k + 1) / nthreads);
       workers.emplace_back([&, k, lo, hi]() {
         bool tns = false;
+        int64_t own[3] = {0, 0, 0};
         for (int s = lo; s < hi; ++s) {
-          parse_stream(s, &arenas[k], &tns, ebufs.data() + k * 256, 256);
+          parse_stream(s, &arenas[k], &tns, ebufs.data() + k * 256, 256, own);
           compact_stream(s);
         }
+        for (int i = 0; i < 3; ++i) counts[static_cast<size_t>(k) * 3 + i] = own[i];
         tns_flags[k] = tns ? 1 : 0;
       });
     }
@@ -1889,6 +2193,12 @@ int aacparse_batch_spec(
     cce_counts[1] = nt;
   }
   has_tns_out[0] = any_tns ? 1 : 0;
+  if (parse_counts) {
+    for (int i = 0; i < 3; ++i) parse_counts[i] = 0;
+    for (int k = 0; k < nthreads; ++k)
+      for (int i = 0; i < 3; ++i)
+        parse_counts[i] += counts[static_cast<size_t>(k) * 3 + i];
+  }
   return OK;
 }
 
@@ -1900,6 +2210,6 @@ void aacjax_spec_to_i16(const float* spec, int64_t n_rows, int n_cols,
                     scales + r * n_blocks);
 }
 
-int aacparse_version() { return 10; }
+int aacparse_version() { return 11; }
 
 }  // extern "C"

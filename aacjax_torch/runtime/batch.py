@@ -101,6 +101,9 @@ from aacjax_torch.runtime.stats import DecodeStats, Trace
 FRAME = 1024
 NATIVE_FRAME_LENGTHS = (1024, 960, 512, 480)
 MAIN_PROFILE, LTP_PROFILE, ELD_PROFILE = 1, 4, 39
+# the native parse's band counts, in its parse_counts order (traced only)
+PARSE_COUNTERS = ("parse_fused_bands", "parse_general_bands",
+                  "parse_gain_table_misses")
 
 
 def _h2d_fields(F: int) -> dict:
@@ -622,7 +625,10 @@ class BatchDecoder:
 
         compact=True has the parse threads write the block-scaled int16
         spectra as they go; a chunk whose DRC gains are folded into the f32
-        spectra after the parse converts them again in a pass of its own."""
+        spectra after the parse converts them again in a pass of its own.
+
+        When tracing, the parse's band counts are counters of the chunk:
+        parse_fused_bands, parse_general_bands, parse_gain_table_misses."""
         t0 = time.perf_counter_ns()
         if self._any_main:
             compact = False
@@ -638,12 +644,16 @@ class BatchDecoder:
         # parser overwrites it
         self._spanned("parse.wait_h2d", chunk_id, _wait,
                       self._h2d_done[buf_slot])
+        # an untraced parse is asked for no counts
+        counted = {} if tr is None else {"counts": np.zeros(3, np.int64)}
         status, has_tns, errmsg = self._spanned(
             "parse.native", chunk_id, native.parse_batch_spec,
             payloads_per_stream, self._sample_indices, self._chan_configs,
             self._base_slots, self._n_slots, self.prev_shapes, arrays,
             tables_pack=self._tables_pack, want_qsf=qsf,
-            want_pred=self._any_main, want_i16=compact)
+            want_pred=self._any_main, want_i16=compact, **counted)
+        for name, n in zip(PARSE_COUNTERS, counted.get("counts", ())):
+            tr.count(name, chunk_id, int(n))
         self._last_status = status
         self._last_consumed = arrays.consumed_bits
         self._last_fil_sbr = arrays.fil_sbr

@@ -31,7 +31,7 @@ COPIES = ("tables.py", "host/bitio.py", "host/adts.py", "host/asc.py",
           "testing/ffmpeg_oracle.py")
 
 # copies whose named top-level definitions differ from the original's: the
-# port's binding loads the port's own parser (aacjax_torch/native, ABI 10),
+# port's binding loads the port's own parser (aacjax_torch/native, ABI 11),
 # whose parse also writes the block-scaled int16 spectra in its threads
 # (`parse_batch_spec(want_i16=True)`)
 FORKED = {"host/native.py": {"__doc__", "_LIB_PATH", "_ABI_VERSION", "_load",

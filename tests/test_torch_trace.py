@@ -116,7 +116,8 @@ def test_lc_pipelined_spans_per_chunk():
     """Each chunk of decode_pipelined has one span of each kind under its
     id, the parse's parts inside the parse; the parse threads wrote the
     compact spectra (`compact_fused`), so no chunk has a `parse.compact`
-    pass."""
+    pass; every chunk's bands were decoded straight into the f32 rows,
+    every gain from the table."""
     dec, chunks = _lc()
     dec.trace = Trace()
     _serve(dec, chunks, "lc")
@@ -137,7 +138,13 @@ def test_lc_pipelined_spans_per_chunk():
     assert all(s.t1_ns >= s.t0_ns > 0 for s in dec.trace.spans)
     assert not dec._pending_steps
     assert not _by_chunk(dec.trace, "parse.compact")
-    assert dec.trace.counters == {("compact_fused", k): 1 for k in ids}
+    counters = dec.trace.counters
+    assert {key: n for key, n in counters.items()
+            if key[0].startswith("compact_")} == {
+                ("compact_fused", k): 1 for k in ids}
+    for k in ids:
+        assert counters[("parse_fused_bands", k)] > 0
+        assert counters[("parse_gain_table_misses", k)] == 0
 
 
 def test_he_pipelined_spans_and_counters(he_corpus):
