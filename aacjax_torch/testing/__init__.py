@@ -1,6 +1,8 @@
 """Test inputs for the port's checks (the CPU tests, the card tests and
-chip_smoke.py): numpy-seeded kernel inputs, and streams built with the
-port's copy of the test encoder (`aacjax_torch.testing.encoder`).
+scripts/kernel_times.py): numpy-seeded kernel inputs, streams built with the
+port's copy of the test encoder (`aacjax_torch.testing.encoder`), and the
+tolerances of the HE routes on the card (HE_ROUTE_TOL, HE_I16_ONSET /
+HE_I16_STEADY).
 Everything here is numpy, so the JAX reference and the port can be fed the
 same arrays."""
 from __future__ import annotations
@@ -200,6 +202,24 @@ def overlap_tns_chunk(seed: int = 8) -> tuple[np.ndarray, ...]:
     rngs[0, 1, 1, 0] = (FRAME - 700, FRAME - 650)
     rngs[0, 2, 1, 0] = (0, FRAME)
     return q, sc, lpc, rngs
+
+
+def pred_chunk(seed: int, C: int, T: int, F: int = FRAME
+               ) -> tuple[np.ndarray, ...]:
+    """Arguments of pred.apply_prediction but the state: (spec f32
+    [C,T,F], mode, reset, nbins int32 [C,T], used uint8 [C,T,672]) with
+    every mode (0 none, 1 long, 2 short; long the most frequent), reset
+    groups on a third of the frames, nbins at and below 672 and `used` set
+    in runs of 16 bins on half of them."""
+    rng = np.random.default_rng(seed)
+    spec = (rng.standard_normal((C, T, F)) * 300).astype(np.float32)
+    mode = rng.choice([0, 1, 1, 1, 1, 2], size=(C, T)).astype(np.int32)
+    reset = np.where(rng.random((C, T)) < 0.33,
+                     rng.integers(1, 31, (C, T)), 0).astype(np.int32)
+    nbins = rng.choice([672, 672, 640, 100], size=(C, T)).astype(np.int32)
+    used = np.repeat(rng.random((C, T, 42)) < 0.5, 16,
+                     axis=-1).astype(np.uint8)
+    return spec, mode, reset, nbins, used
 
 
 def lc_stereo_config() -> StreamConfig:
@@ -539,6 +559,57 @@ def multi_rdb_adts(n_blocks: int = 9, crc: bool = False, seed: int = 0
 
 
 # -- HE-AAC v1 -------------------------------------------------------------
+# Whole HE decodes on the card against the CPU, f32 within HE_ROUTE_TOL *
+# max(1, max|ref|): their cores differ by the kernels' FFT IMDCT against the
+# plain versions' dense product (agreeing to 5e-5 * max(1, max|ref|) in the
+# PCM, far less in practice), and the SBR program's envelope gains divide by
+# the patched bands' energies, which amplifies that.
+HE_ROUTE_TOL = 1e-3
+# HE int16 PCM through the kernel route's core (the tail kernel, FFT IMDCT)
+# against the plain route's (the dense IMDCT), both through the same SBR
+# (and PS) program.  The cores differ by float rounding (~5e-7 of full
+# scale); the SBR program amplifies that in the first two frames of a
+# stream, where the covariance LPC of the patch source bands is solved over
+# a window that still holds the zeroed start-up history and the quiet
+# onset: a near-singular 2x2 system.  tests/test_torch_he_bound.py measures
+# it on the CPU over 2 stereo streams x 4 frames of HE-512's traffic, with
+# the port's numpy model of the kernel's FFT against its dense IMDCT: frames
+# 0-1 differ by 4 LSB on 12.0% of their samples (low-passed as bench_he
+# builds it) and 5 LSB on 16.8% (the same noise unfiltered), frames 2-3 by
+# 1 LSB on 0.15% and 0.23%; the reference's SBR program fed the same two
+# cores gives 4 LSB on 12.1% / 1 on 0.18% and 5 on 16.8% / 1 on 0.21%, so
+# the growth is the SBR math's, in both packages (the two SBR programs on
+# one core agree within 1 LSB on <= 0.15%).  Hence the bound per frame of a
+# stream: frames 0 and 1 within HE_I16_ONSET (max LSB, share of their
+# samples; 8 and 0.40 leave a margin over the measured 5 and 0.168), later
+# frames the North-star rule HE_I16_STEADY.
+HE_ONSET_FRAMES = 2
+HE_I16_ONSET = (8, 0.40)
+HE_I16_STEADY = (1, 0.02)
+
+
+def he_i16_stats(pairs) -> dict:
+    """HE int16 PCM of one route against another's: `pairs` holds (got,
+    want, first) per chunk, [C, T, 2F] int16 arrays whose frame t is frame
+    first + t of its stream.  Returns, for the onset frames and the later
+    ones, (max delta in LSB, share of samples that differ, samples)."""
+    stats = {}
+    for part in ("onset", "steady"):
+        d_max, n_diff, n_all = 0, 0, 0
+        for got, want, first in pairs:
+            t = first + np.arange(got.shape[1])
+            sel = (t < HE_ONSET_FRAMES) == (part == "onset")
+            if not sel.any():
+                continue
+            d = np.abs(got[:, sel].astype(np.int32)
+                       - want[:, sel].astype(np.int32))
+            d_max = max(d_max, int(d.max()))
+            n_diff += int((d > 0).sum())
+            n_all += d.size
+        stats[part] = (d_max, n_diff / max(n_all, 1), n_all)
+    return stats
+
+
 def he_serving_corpus(n_unique: int, seconds: float, chunk: int,
                       lowpass: bool = True, ps: bool = False):
     """A serving corpus of HE-AAC v1 stereo streams built as the reference's

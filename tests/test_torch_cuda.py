@@ -381,18 +381,6 @@ def test_tns_kernel_other_frame_lengths(dev, F, compact):
 
 
 # -- the Main-profile predictor ---------------------------------------------------
-def _pred_chunk(seed, C, T, F=1024):
-    rng = np.random.default_rng(seed)
-    spec = (rng.standard_normal((C, T, F)) * 300).astype(np.float32)
-    mode = rng.choice([0, 1, 1, 1, 1, 2], size=(C, T)).astype(np.int32)
-    reset = np.where(rng.random((C, T)) < 0.33,
-                     rng.integers(1, 31, (C, T)), 0).astype(np.int32)
-    nbins = rng.choice([672, 672, 640, 100], size=(C, T)).astype(np.int32)
-    used = np.repeat(rng.random((C, T, 42)) < 0.5, 16,
-                     axis=-1).astype(np.uint8)
-    return spec, mode, reset, nbins, used
-
-
 def _bits_equal(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -404,7 +392,7 @@ def test_pred_kernel_equals_plain_bit_for_bit(dev, C, T, F):
     below 672; also a frame length of 960 and of exactly the 672 bins."""
     st_k = st_p = pred.pred_state_init(C, dev)
     for k in range(3):
-        args = _on(dev, _pred_chunk(C + k, C, T, F))
+        args = _on(dev, TI.pred_chunk(C + k, C, T, F))
         keep = args[0].clone()
         before = pred.launches
         out, st_k = pred.apply_prediction(*args, st_k)
@@ -418,7 +406,7 @@ def test_pred_kernel_equals_plain_bit_for_bit(dev, C, T, F):
 
 
 def test_pred_kernel_in_place_touches_only_the_predicted_bins(dev):
-    args = _on(dev, _pred_chunk(4, 6, 9))
+    args = _on(dev, TI.pred_chunk(4, 6, 9))
     state = pred.pred_state_init(6, dev)
     state_keep = state.clone()
     ref, _ = pred.apply_prediction_ref(*args, state)
@@ -431,7 +419,7 @@ def test_pred_kernel_in_place_touches_only_the_predicted_bins(dev):
 
 
 def test_pred_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    spec, mode, reset, nbins, used = _on(dev, _pred_chunk(1, 2, 3))
+    spec, mode, reset, nbins, used = _on(dev, TI.pred_chunk(1, 2, 3))
     state = pred.pred_state_init(2, dev)
     with pytest.raises(TypeError, match="used"):
         pred.apply_prediction(spec, mode, reset, nbins, used.float(), state)
@@ -534,6 +522,22 @@ def test_decode_loas_on_card_matches_cpu(dev, profile, frame_length):
     TI.assert_pcm_close(got, want, False)
 
 
+@pytest.mark.parametrize("kind", ["ltp", "three_blocks"])
+def test_decode_adts_on_card_ltp_and_multi_block_match_cpu(dev, kind):
+    """AAC-LTP with TNS (the host's float64 decoder on either device, so
+    the two calls are equal) and ADTS frames of three raw_data_blocks with
+    crc_check, through decode_adts on the card against the CPU."""
+    data = (TI.ltp_adts(8, seed=5, tns=True) if kind == "ltp"
+            else TI.multi_rdb_adts(9, crc=True))
+    got, rate = aacjax_torch.decode_adts(data, device=dev)
+    want, want_rate = aacjax_torch.decode_adts(data, device="cpu")
+    assert rate == want_rate and float(np.abs(want).max()) > 0
+    if kind == "ltp":
+        np.testing.assert_array_equal(got, want)
+    else:
+        TI.assert_pcm_close(got, want, False)
+
+
 def test_streaming_decoder_on_card_matches_cpu(dev):
     """Block by block (T = 1): the native streaming route and the python
     parser, the predictor state advancing one frame a step."""
@@ -583,9 +587,28 @@ def test_reset_and_state_on_card(dev):
 # int16 within 1 LSB on < 2% of the samples.  Whole HE decodes are held to
 # the CPU within 1e-3 * max(1, max|ref|): their cores also differ, by the
 # kernels' FFT IMDCT against the plain versions' dense product, and the same
-# division amplifies that.  The HE core runs the tail (or synthesis) and
-# TNS kernels.
-HE_ROUTE_TOL = 1e-3
+# division amplifies that (TI.HE_ROUTE_TOL).  The HE core runs the tail (or
+# synthesis) and TNS kernels.  The int16 PCM of a core on the kernel route
+# against one on the plain route is held to the HE bound, TI.HE_I16_ONSET /
+# HE_I16_STEADY, which tests/test_torch_he_bound.py derives.
+
+
+def _he_serving_chunks(ps):
+    """16 streams of the HE (or, with `ps`, the PS) serving corpus, two
+    unique, in 2 chunks of 8 frames: (config, chunks)."""
+    make = TI.ps_serving_corpus if ps else TI.he_serving_corpus
+    config, corpus = make(2, 1.0, 16)
+    return config, [[corpus[i % 2][8 * k:8 * (k + 1)] for i in range(16)]
+                    for k in range(2)]
+
+
+def _assert_he_bound(pairs):
+    """HE int16 (got, want, first frame) pairs within TI.HE_I16_ONSET on a
+    stream's frames 0-1 and TI.HE_I16_STEADY on later frames."""
+    stats = TI.he_i16_stats(pairs)
+    for part, (limit, share) in (("onset", TI.HE_I16_ONSET),
+                                 ("steady", TI.HE_I16_STEADY)):
+        assert stats[part][0] <= limit and stats[part][1] < share, stats
 
 
 def _he_close(got, want, what="", tol=2e-4):
@@ -619,30 +642,44 @@ def test_qmf_on_card_matches_cpu(dev):
         _he_close(g.cpu(), w, "synthesis")
 
 
+@pytest.mark.parametrize("ps", [False, True])
 @pytest.mark.parametrize("out_int16", [False, True])
-def test_sbr_apply_on_card_matches_cpu(dev, out_int16):
+def test_sbr_apply_on_card_matches_cpu(dev, out_int16, ps):
     """One chunk of the HE serving corpus at the serving shape (512 stereo
-    streams, C = 1024, T = 8), compact planes."""
+    streams, C = 1024, T = 8), compact planes; with `ps`, sbr_ps_apply on
+    one chunk of the PS serving corpus (512 mono streams and their pairs,
+    C = 1024, T = 8, 20-band), its PCM and both states."""
+    from aacjax_torch.kernels import ps_batch as PB
     from aacjax_torch.kernels import sbr_batch as SB
-    core, planes, cfg, state = TI.sbr_apply_inputs(512, 8, dev, compact=True)
-    got, got_state = SB.sbr_apply(core, planes, state, cfg, out_int16)
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
-    want, want_state = SB.sbr_apply(core.cpu(), cpu(planes), cpu(state),
-                                    cpu(cfg), out_int16)
+    if ps:
+        core, planes, ps_in, cfg, state, ps_state = TI.sbr_ps_apply_inputs(
+            512, 8, dev)
+        got, *got_state = PB.sbr_ps_apply(core, planes, ps_in, state,
+                                          ps_state, cfg, out_int16)
+        want, *want_state = PB.sbr_ps_apply(
+            core.cpu(), cpu(planes), cpu(ps_in), cpu(state), cpu(ps_state),
+            cpu(cfg), out_int16)
+    else:
+        core, planes, cfg, state = TI.sbr_apply_inputs(512, 8, dev,
+                                                       compact=True)
+        got, *got_state = SB.sbr_apply(core, planes, state, cfg, out_int16)
+        want, *want_state = SB.sbr_apply(core.cpu(), cpu(planes), cpu(state),
+                                         cpu(cfg), out_int16)
     if out_int16:
         TI.assert_pcm_close(got.cpu(), want, True)
     else:
         _he_close(got.cpu(), want, "pcm")
-    for k in want_state:
-        _he_close(got_state[k].cpu(), want_state[k], k)
+    for g, w in zip(got_state, want_state, strict=True):
+        for k in w:
+            _he_close(g[k].cpu(), w[k], k)
 
 
 def test_decode_he_pipelined_on_card_matches_cpu(dev):
     """16 HE streams, 2 chunks of 8: the q/sf core through the tail kernel
     once a chunk, then the SBR program.  int16 PCM equals step_he_raw's on
     the card; f32 PCM matches the CPU."""
-    config, chunk = TI.he_chunk(16, 16, seconds=1.0)
-    chunks = [[p[:8] for p in chunk], [p[8:] for p in chunk]]
+    config, chunks = _he_serving_chunks(False)
 
     def decoder(device):
         return aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
@@ -656,7 +693,7 @@ def test_decode_he_pipelined_on_card_matches_cpu(dev):
     got = decoder(dev).decode_he_pipelined(iter(chunks), out_int16=False)
     want = decoder("cpu").decode_he_pipelined(iter(chunks), out_int16=False)
     for g, w in zip(got, want, strict=True):
-        _he_close(g, w, "pipelined", HE_ROUTE_TOL)
+        _he_close(g, w, "pipelined", TI.HE_ROUTE_TOL)
 
 
 def test_he_routes_on_card_match_cpu(dev):
@@ -669,7 +706,7 @@ def test_he_routes_on_card_match_cpu(dev):
     got, rate = aacjax_torch.decode_adts(stream, chunk_frames=4, device=dev)
     assert tns.launches > n0 and rate == 44100
     want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4, device="cpu")
-    _he_close(got, want, "decode_adts", HE_ROUTE_TOL)
+    _he_close(got, want, "decode_adts", TI.HE_ROUTE_TOL)
 
     def streaming(device):
         d = aacjax_torch.AACDecoder(device=device)
@@ -678,7 +715,8 @@ def test_he_routes_on_card_match_cpu(dev):
         while (c := d.read_chunk()) is not None:
             out.append(c)
         return np.concatenate(out)
-    _he_close(streaming(dev), streaming("cpu"), "AACDecoder", HE_ROUTE_TOL)
+    _he_close(streaming(dev), streaming("cpu"), "AACDecoder",
+              TI.HE_ROUTE_TOL)
 
     h2 = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0,
                      limiter_gains=1)
@@ -691,7 +729,7 @@ def test_he_routes_on_card_match_cpu(dev):
         outs = [d.step_he_raw([payloads[3 * k:3 * k + 3]]) for d in decs]
         assert [d._sbr_np_sticky[0] for d in decs] == [k == 1] * 2, k
         _he_close(outs[0], outs[1], f"header change chunk {k}",
-                  HE_ROUTE_TOL)
+                  TI.HE_ROUTE_TOL)
 
 
 # -- HE-AAC v2 (Parametric Stereo) ------------------------------------------------
@@ -771,9 +809,7 @@ def test_decode_he_pipelined_ps_on_card_matches_cpu(dev):
     """16 HE-AAC v2 streams (C = 32 slots), 2 chunks of 8: one tail and one
     decorrelator launch a chunk; int16 PCM equals step_he_raw's on the card
     and f32 PCM matches the CPU."""
-    config, corpus = TI.ps_serving_corpus(2, 1.0, 16)
-    chunks = [[corpus[i % 2][8 * k:8 * (k + 1)] for i in range(16)]
-              for k in range(2)]
+    config, chunks = _he_serving_chunks(True)
 
     def decoder(device):
         return aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
@@ -788,7 +824,7 @@ def test_decode_he_pipelined_ps_on_card_matches_cpu(dev):
     got = decoder(dev).decode_he_pipelined(iter(chunks), out_int16=False)
     want = decoder("cpu").decode_he_pipelined(iter(chunks), out_int16=False)
     for g, w in zip(got, want, strict=True):
-        _he_close(g, w, "pipelined", HE_ROUTE_TOL)
+        _he_close(g, w, "pipelined", TI.HE_ROUTE_TOL)
 
 
 def test_ps_routes_on_card_match_cpu(dev):
@@ -804,7 +840,7 @@ def test_ps_routes_on_card_match_cpu(dev):
         want, _ = aacjax_torch.decode_adts(stream, chunk_frames=4,
                                            device="cpu")
         assert rate == 44100 and got.shape[1] == 2
-        _he_close(got, want, f"decode_adts {name}", HE_ROUTE_TOL)
+        _he_close(got, want, f"decode_adts {name}", TI.HE_ROUTE_TOL)
 
     def batch(streams, chunk, device, hook=None):
         pays = [TI.adts_payloads(s) for s in streams]
@@ -825,13 +861,14 @@ def test_ps_routes_on_card_match_cpu(dev):
              TI.ps_stream(specs["34-band 2 env"], 6, 2)]
     got, d = batch(mixed, 3, dev)
     assert not any(d._sbr_np_sticky) and d._ps_slot_is34[2] is True
-    _he_close(got, batch(mixed, 3, "cpu")[0], "mixed 20/34", HE_ROUTE_TOL)
+    _he_close(got, batch(mixed, 3, "cpu")[0], "mixed 20/34",
+              TI.HE_ROUTE_TOL)
     sticky = []
     flip = [TI.ps_flip_stream([2] * 4 + [1] * 4)]
     got, d = batch(flip, 2, dev, lambda k, d: sticky.append(
         d._sbr_np_sticky[0]))
     assert sticky == [False, False, True, False]
-    _he_close(got, batch(flip, 2, "cpu")[0], "flip", HE_ROUTE_TOL)
+    _he_close(got, batch(flip, 2, "cpu")[0], "flip", TI.HE_ROUTE_TOL)
 
     stream = TI.ps_stream(specs["20-band"], 6, 3)
 
@@ -844,7 +881,7 @@ def test_ps_routes_on_card_match_cpu(dev):
         return np.concatenate(out)
     got = streaming(dev)
     assert got.shape[1] == 2
-    _he_close(got, streaming("cpu"), "AACDecoder", HE_ROUTE_TOL)
+    _he_close(got, streaming("cpu"), "AACDecoder", TI.HE_ROUTE_TOL)
 
     pays = TI.adts_payloads(stream)
     cfg = TI.parse_asc(TI.adts.synthesize_cookie(
@@ -859,10 +896,152 @@ def test_ps_routes_on_card_match_cpu(dev):
         d2.restore_state(d.save_state())
         outs[device] = d2.step_he_raw([pays[3:6]])
         np.testing.assert_array_equal(outs[device], d.step_he_raw([pays[3:6]]))
-    _he_close(outs[dev], outs["cpu"], "after restore", HE_ROUTE_TOL)
+    _he_close(outs[dev], outs["cpu"], "after restore", TI.HE_ROUTE_TOL)
+
+
+@pytest.mark.parametrize("ps", [False, True])
+def test_he_kernel_core_within_the_he_bound_of_the_plain_core(dev, ps):
+    """Each chunk's host phase once, its core on the kernel route (the tail
+    kernel's FFT IMDCT) and on the plain route (the dense IMDCT) of two
+    decoders on the card, each core through its decoder's SBR (and PS)
+    program to int16 PCM: frames 0-1 of a stream within TI.HE_I16_ONSET,
+    later frames within TI.HE_I16_STEADY."""
+    config, chunks = _he_serving_chunks(ps)
+    ver, plain = (aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
+                                            cce_slots=int(ps), device=dev)
+                  for _ in range(2))
+    plain._sbr_init()     # it runs no host phase of its own: ver's feeds both
+    pairs = []
+    for k, chunk in enumerate(chunks):
+        parsed, dense, ctx = ver._he_host_phase(chunk, True)
+        core_k = ver._device_step(ver._upload_batch(dict(parsed)))
+        core_p = plain._device_step(plain._upload_batch(dict(parsed)),
+                                    use_pallas=False)
+        pairs.append((ver._sbr_stage(core_k, dense, ctx, True).copy(),
+                      plain._sbr_stage(core_p, dense, ctx, True).copy(),
+                      8 * k))
+    _assert_he_bound(pairs)
+
+
+# -- the user surfaces ------------------------------------------------------------
+def _tone_adts():
+    """24 frames of an LC stereo tone as ADTS."""
+    return TI.encode_adts(TI.tone_pcm(1024 * 24), target_sf=120)
+
+
+@pytest.mark.parametrize("kind", ["lc", "he"])
+def test_decode_m4a_on_card_matches_cpu(dev, kind):
+    """An LC .m4a (its gapless trim exact) and an HE .m4a (explicit SBR)
+    decoded on the card against the same call on the CPU."""
+    pcm = TI.tone_pcm(1024 * 24)
+    data = (aacjax_torch.encode_m4a(pcm, 44100) if kind == "lc" else
+            aacjax_torch.HEAACEncoder(44100, 2, 40_000).encode_m4a(pcm))
+    got, rate = aacjax_torch.decode_m4a(data, device=dev)
+    want, want_rate = aacjax_torch.decode_m4a(data, device="cpu")
+    assert rate == want_rate
+    if kind == "lc":
+        assert got.shape[0] == pcm.shape[0]
+        TI.assert_pcm_close(got, want, False)
+    else:
+        _he_close(got, want, "decode_m4a HE", TI.HE_ROUTE_TOL)
+
+
+def test_aac_file_reads_on_card_equal_a_full_decode(dev):
+    """AACFile's ranged reads of an LC stream equal the same slices of a
+    full decode on the card bit for bit; an HE seek read (an SBR header in
+    every frame) converges to the full decode (> 60 dB)."""
+    from aacjax_torch.host import sbr as S
+    stream = _tone_adts()
+    full, _ = aacjax_torch.decode_adts(stream, device=dev)
+    f = aacjax_torch.AACFile(stream, device=dev)
+    for start, n in ((0, 1024), (5 * 1024, 1024), (5 * 1024 + 137, 2000),
+                     (22 * 1024 + 512, 4096), (3 * 1024, 1), (9000, 20000)):
+        np.testing.assert_array_equal(f.read(start, n),
+                                      full[start:start + n])
+    hdr = S.SBRHeader(amp_res=1, start_freq=4, stop_freq=3, xover_band=0)
+    he = TI.he_stream(24, ch=2, header_at=dict.fromkeys(range(24), hdr))
+    he_full, _ = aacjax_torch.decode_adts(he, chunk_frames=8, device=dev)
+    start, n = 20 * 2048, 2 * 2048
+    seek = aacjax_torch.AACFile(he, chunk_frames=8, device=dev).read(start, n)
+    ref = he_full[start:start + n]
+    snr = 10 * np.log10(float(np.sum(ref ** 2)) / max(
+        float(np.sum((seek - ref) ** 2)), 1e-30))
+    assert snr > 60.0, snr
+
+
+def test_aurora_pipe_on_card_matches_decode_adts(dev):
+    """The ADTS demuxer piped into AuroraDecoder, fed in pieces of 1000
+    bytes, against decode_adts on the card (the reference's 2e-4)."""
+    from aacjax_torch import aurora
+    stream = _tone_adts()
+    full, _ = aacjax_torch.decode_adts(stream, device=dev)
+    demux = aurora.ADTSDemuxer()
+    dec = demux.pipe(aurora.AuroraDecoder(device=dev))
+    chunks = []
+    dec.on("data", chunks.append)
+    for off in range(0, len(stream), 1000):
+        demux.feed(stream[off:off + 1000])
+        dec.decode_all()
+    demux.end()
+    piped = np.concatenate(chunks).reshape(-1, 2)
+    assert piped.shape == full.shape
+    assert float(np.abs(piped - full).max()) <= 2e-4
+
+
+def test_cli_info_and_decode_on_card(dev, tmp_path, capsys):
+    """`aacjax_torch.cli info` names the card and both native libraries;
+    `python -m aacjax_torch.cli decode` by subprocess (on the card, its
+    default) writes every sample."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    from aacjax_torch import cli
+    assert cli.main(["info"]) == 0
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert info["cuda_device"] == torch.cuda.get_device_name(0), info
+    assert info["native_parser"] and info["native_writer"], info
+    stream = _tone_adts()
+    src = tmp_path / "in.aac"
+    src.write_bytes(stream)
+    r = subprocess.run([sys.executable, "-m", "aacjax_torch.cli", "decode",
+                        str(src), str(tmp_path / "out.wav")],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stderr[-800:]
+    decoded = json.loads(r.stdout.strip().splitlines()[-1])
+    full, _ = aacjax_torch.decode_adts(stream, device=dev)
+    assert decoded["samples"] == full.shape[0], decoded
+
+
+def test_good_stream_beside_garbage_on_card_equals_its_solo_decode(dev):
+    """Two copies of a good stream in one batch with two streams of random
+    bytes: the garbage streams fail, the good ones decode as the stream
+    does alone."""
+    stream = _tone_adts()
+    rng = np.random.default_rng(3)
+    cfg = TI.lc_stereo_config()
+    good = TI.adts_payloads(stream)[:16]
+    garbage = [rng.integers(0, 256, size=200).astype(np.uint8).tobytes()
+               for _ in range(16)]
+    both = aacjax_torch.BatchDecoder([cfg] * 4, chunk_frames=16, device=dev)
+    pcm = both.step_raw([good, garbage, garbage, good], out_int16=False)
+    assert [st.failed for st in both.streams] == [False, True, True, False]
+    solo = aacjax_torch.BatchDecoder([cfg], chunk_frames=16, device=dev)
+    want = solo.step_raw([good], out_int16=False)
+    peak = max(float(np.abs(want[:2]).max()), 1e-9)
+    for rows in (pcm[:2], pcm[6:8]):
+        assert float(np.abs(rows - want[:2]).max()) / peak <= 1e-5
 
 
 # -- the mesh -------------------------------------------------------------------
+def _virtual_mesh(n_stream, n_frame):
+    """An n_stream x n_frame mesh of virtual shards of card 0."""
+    from aacjax_torch.runtime import mesh as meshlib
+    return meshlib.make_mesh(n_stream, n_frame, devices=[
+        torch.device("cuda", 0)] * (n_stream * n_frame))
+
+
 def _mesh_run(configs, chunks, mesh, dev):
     dec = aacjax_torch.BatchDecoder(configs, chunk_frames=8, device=dev)
     outs = list(dec.decode_pipelined(iter(chunks), out_int16=True,
@@ -870,19 +1049,20 @@ def _mesh_run(configs, chunks, mesh, dev):
     return outs, dec
 
 
-def test_virtual_mesh_bit_equal_to_unsharded(dev):
-    """A 2x1 mesh of virtual shards on one card: 32 stereo streams (32
-    slots a shard, the fused tail on every shard as unsharded), every chunk
-    bit-equal to the unsharded run, one tail launch a shard a chunk."""
-    from aacjax_torch.runtime import mesh as meshlib
+@pytest.mark.parametrize("shards", [2, 4])
+def test_virtual_mesh_bit_equal_to_unsharded(dev, shards):
+    """A 2x1 and a 4x1 mesh of virtual shards on one card: 32 stereo
+    streams (32 or 16 slots a shard, the fused tail on every shard as
+    unsharded), every chunk bit-equal to the unsharded run, one tail launch
+    a shard a chunk."""
     from aacjax_torch.testing.streams import make_lc_payload_chunks
     configs, chunks = make_lc_payload_chunks(n_streams=32, chunk_frames=8,
                                              n_chunks=3, seed=2)
     want, d0 = _mesh_run(configs, chunks, None, dev)
-    m = meshlib.make_mesh(2, 1, devices=[torch.device("cuda", 0)] * 2)
+    m = _virtual_mesh(shards, 1)
     before = tail.launches
     got, d1 = _mesh_run(configs, chunks, m, dev)
-    assert tail.launches - before == 2 * len(chunks)
+    assert tail.launches - before == shards * len(chunks)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert torch.equal(d1.overlap, d0.overlap)
@@ -910,6 +1090,92 @@ def test_two_card_mesh_matches_unsharded(dev):
     assert d1._ov.devices == m.row_devices
     assert torch.equal(d1.overlap, d0.overlap)
     assert d1.overlap.device == torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kind", ["lc", "main"])
+def test_virtual_mesh_frame_axis_matches_unsharded(dev, kind):
+    """A 2x2 mesh of virtual shards of one card, the frame axis (the
+    overlap and, for Main, the predictor's state handed from frame shard to
+    frame shard), against the unsharded card run, one launch a shard a
+    chunk.  LC: int16 PCM within 1 LSB on < 2% of samples, and the carry
+    after each of three chunks, stepped, within 3e-3; Main: f32 PCM within
+    5e-5 * max(1, max|ref|), a predictor and a synthesis launch a shard,
+    no tail."""
+    from aacjax_torch.testing.streams import make_lc_payload_chunks
+    m = _virtual_mesh(2, 2)
+    if kind == "lc":
+        configs, chunks = make_lc_payload_chunks(n_streams=8, chunk_frames=8,
+                                                 n_chunks=3, seed=2)
+        T, out_int16 = 8, True
+    else:
+        cfg, corpus = TI.main_serving_corpus(4, 12)
+        chunks = _chunked([corpus[i % 4] for i in range(8)], 4)
+        configs, T, out_int16 = [cfg] * 8, 4, False
+
+    def decoder():
+        return aacjax_torch.BatchDecoder(configs, chunk_frames=T, device=dev)
+
+    def run(mesh):
+        return [o.copy() for o in decoder().decode_pipelined(
+            iter(chunks), out_int16=out_int16, mesh=mesh)]
+    want = run(None)
+    before = (tail.launches, pred.launches, synth.launches)
+    got = run(m)
+    n = 4 * len(chunks)
+    counted = (tail.launches - before[0], pred.launches - before[1],
+               synth.launches - before[2])
+    assert counted == ((n, 0, 0) if kind == "lc" else (0, n, n)), counted
+    for g, w in zip(got, want, strict=True):
+        TI.assert_pcm_close(g, w, out_int16)
+    if kind == "lc":
+        a, b = decoder(), decoder()
+        for chunk in chunks:
+            a.step_raw(chunk, out_int16=True)
+            b.finalize_step(b._device_step(
+                b._parse_native(chunk, compact=True), True, mesh=m))
+            assert float((a.overlap - b.overlap).abs().max()) <= 3e-3
+
+
+@pytest.mark.parametrize("ps", [False, True])
+def test_virtual_mesh_he_matches_unsharded(dev, ps):
+    """HE-AAC v1 and v2 (16 streams, 2 chunks of 8) through
+    decode_he_pipelined on a 4x1 mesh of virtual shards of one card against
+    the unsharded card run: f32 PCM within 1e-5 * max(1, max|ref|) (the
+    reference's dry-run bar), int16 PCM within the HE bound; one tail and,
+    for PS, one decorrelator launch a shard a chunk."""
+    config, chunks = _he_serving_chunks(ps)
+    m = _virtual_mesh(4, 1)
+
+    def run(mesh, out_int16):
+        dec = aacjax_torch.BatchDecoder([config] * 16, chunk_frames=8,
+                                        cce_slots=int(ps), device=dev)
+        return [o.copy() for o in dec.decode_he_pipelined(
+            iter(chunks), out_int16=out_int16, mesh=mesh)]
+    for out_int16 in (False, True):
+        want = run(None, out_int16)
+        before = (tail.launches, ps_decorr.launches)
+        got = run(m, out_int16)
+        assert (tail.launches - before[0], ps_decorr.launches - before[1]) \
+            == (8, 8 if ps else 0)
+        if out_int16:
+            _assert_he_bound([(g, w, 8 * k) for k, (g, w) in
+                              enumerate(zip(got, want, strict=True))])
+        else:
+            for k, (g, w) in enumerate(zip(got, want, strict=True)):
+                _he_close(g, w, f"chunk {k}", 1e-5)
+
+
+def test_dryrun_multichip_on_virtual_shards(dev):
+    """graft_entry.dryrun_multichip(4) on four virtual shards of one card:
+    the reference's five sharded paths, each held to its unsharded call."""
+    from aacjax_torch import graft_entry
+    lines = graft_entry.dryrun_multichip(
+        4, devices=[torch.device("cuda", 0)] * 4)
+    text = "\n".join(lines)
+    assert lines[0].startswith("mesh 2x2")
+    for path in ("decode_step pcm", "decode_spec_step", "HE-AAC core+SBR",
+                 "encode_pipelined", "HE-AAC v2 SBR+PS"):
+        assert path in text, path
 
 
 # -- the compiled programs (runtime/graphs.py) -------------------------------------
@@ -1046,6 +1312,10 @@ def test_graph_replays_equal_eager(dev, name):
     decoders, or two virtual shards of one card).  The launch counters
     count each replay's kernels as the eager call's."""
     from aacjax_torch.runtime import graphs
+    # earlier tests' programs would fill the cache, and an entry evicted
+    # mid-test (least recently used, graphs.MAX_ENTRIES) takes its replays
+    # out of the count
+    graphs.clear(dev)
     prog, eager, call, owners, reset_rows = _program_case(name, dev)
     replays = sum(e["replays"] for e in graphs.entries()
                   if e["name"] == prog.name)
@@ -1083,6 +1353,7 @@ def test_encoder_graphs_equal_eager(dev):
     every output held until the end."""
     from aacjax_torch import encode_batch as EB
     from aacjax_torch.runtime import graphs
+    graphs.clear(dev)        # one entry a name; none evicted mid-test
     enc, chunks = TI.encoder_program_chunks(4, 4, 6)
     nF = 4
     psy = enc._psy_key()
@@ -1261,13 +1532,11 @@ def test_batch_encoder_virtual_mesh_byte_identical(dev):
     """BatchEncoder on a 4x1 mesh of virtual shards of one card (4 channel
     rows a shard) against one device: two chunks byte-identical, one launch
     of each scan kernel a shard a chunk."""
-    from aacjax_torch.runtime import mesh as meshlib
     n = 4 * 1024
     pcm = TI.encode_serving_pcm(8, 2 * n)
     chunks = [pcm[:, k * n:(k + 1) * n] for k in range(2)]
     outs, launches = {}, {}
-    for name, mesh in (("unsharded", None), ("4x1", meshlib.make_mesh(
-            4, 1, devices=[torch.device("cuda", 0)] * 4))):
+    for name, mesh in (("unsharded", None), ("4x1", _virtual_mesh(4, 1))):
         enc = aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=8,
                                         mesh=mesh)
         before = (enc_scans.spread_count.launches, enc_scans.rate_cost_count.launches)
@@ -1276,3 +1545,127 @@ def test_batch_encoder_virtual_mesh_byte_identical(dev):
                           enc_scans.rate_cost_count.launches - before[1])
     assert outs["4x1"] == outs["unsharded"]
     assert launches == {"unsharded": (2, 2), "4x1": (8, 8)}
+
+
+@pytest.mark.parametrize("sample_rate,channels,bitrate,S,frames", [
+    (44100, 2, 128_000, 8, 16),   # the ENC traffic's chunk, fewer streams
+    (32000, 1, 64_000, 37, 3),    # mono 32 kHz: N = 111, nb = 43, Pe = 768
+])
+def test_enc_scan_kernels_on_analysis_intermediates(dev, sample_rate,
+                                                    channels, bitrate, S,
+                                                    frames):
+    """Both scan kernels on what the eager analysis program hands them for
+    a real chunk, bit for bit against their plain versions."""
+    enc = aacjax_torch.BatchEncoder(sample_rate, channels, bitrate,
+                                    n_streams=S, device=dev)
+    pcm = TI.encode_serving_pcm(S, frames * 1024)[:, :, :channels]
+    seen, _ = TI.enc_scans_inputs(enc, pcm, dev)
+    spread_args, spread_out = seen["spread"]
+    rc_args, rc_out = seen["rate_cost"]
+    t34, is_short, regions, base, fit_sf, zero_sf, offsets = rc_args
+    region = torch.where(is_short[:, None], regions[1], regions[0])
+    lut = enc_scans._constants(offsets, dev)["lut"]
+    for got, want in (
+            (spread_out, enc_scans.spread_ref(*spread_args)),
+            (rc_out, enc_scans.rate_cost_ref(t34, region, base, fit_sf,
+                                             zero_sf, lut, offsets))):
+        assert got.shape == want.shape
+        assert torch.equal(got.contiguous().view(torch.int32),
+                           want.contiguous().view(torch.int32))
+
+
+def test_batch_encoder_analysis_on_card_matches_cpu(dev):
+    """One chunk's analysis (64 stereo streams of 16 frames) on the card
+    against the CPU: coefs within 1e-5 * max|coefs|; base and fit_sf equal
+    on >= 99.9% of (row, band) entries, never more than one step apart; est
+    within 1% of each row's largest.  Then the quantize on both devices fed
+    the CPU's analysis: q equal on >= 99.99% of bins, never more than one
+    step apart; sf equal."""
+    from aacjax_torch import encode_batch as EB
+    S = 64
+    enc = aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=S,
+                                    device=dev)
+    _, pcm_i16, w_idx, is_short, nF = enc._prep_chunk(
+        TI.encode_serving_pcm(S, 16 * 1024))
+    host = [torch.from_numpy(a) for a in (pcm_i16, w_idx.astype(np.int64),
+                                          is_short)]
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        fn = EB._analysis_fn(enc._si, enc._cutoff_bin, EB.FRAME, nF,
+                             enc._psy_key(), d)
+        outs[d.type] = fn(*(a.to(d) for a in host))
+    (c, b, f, e, bb), (c0, b0, f0, e0, bb0) = (
+        [a.cpu().numpy() for a in outs[d]] for d in ("cuda", "cpu"))
+    np.testing.assert_array_equal(bb, bb0)
+    assert float(np.abs(c - c0).max()) <= 1e-5 * float(np.abs(c0).max())
+    for got, want in ((b, b0), (f, f0)):
+        diff = np.abs(got - want)
+        assert float((diff != 0).mean()) <= 1e-3 and float(diff.max()) <= 1
+    row = np.maximum(np.abs(e0).max(axis=1, keepdims=True), 1.0)
+    assert float((np.abs(e - e0) / row).max()) <= 0.01
+    cpu_enc = aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=S,
+                                        device="cpu")
+    off, _ = cpu_enc._rate_choice(e0, nF)
+    short = torch.from_numpy(is_short.reshape(-1))
+    q = {}
+    for d, coder in ((dev, enc), (torch.device("cpu"), cpu_enc)):
+        a = [t.to(d) for t in outs["cpu"]]
+        q[d.type] = [t.cpu().numpy() for t in coder._quantize(
+            a[0], a[1], a[2], a[4], torch.from_numpy(off).to(d),
+            short.to(d))]
+    np.testing.assert_array_equal(q["cuda"][1], q["cpu"][1])
+    dq = np.abs(q["cuda"][0].astype(np.int32) - q["cpu"][0])
+    assert float((dq != 0).mean()) <= 1e-4 and int(dq.max()) <= 1
+
+
+def _encode_snrs(outs, pcm, config, T, device):
+    """Each stream's SNR (dB) of `outs` (encode_chunk results, chunks of T
+    frames) decoded through decode_pipelined on `device`, against its
+    source pcm [S, n, 2]: the decode lags the source by one frame; the
+    first chunk, where the bit estimate's calibration warms, and the last
+    frame are left out."""
+    S, L = pcm.shape[0], T * 1024
+    payloads = [[p for o in outs for p in o[s]] for s in range(S)]
+    dec = aacjax_torch.BatchDecoder([config] * S, chunk_frames=T,
+                                    device=device)
+    pcm_out = [o.copy() for o in dec.decode_pipelined(iter(
+        [[p[k * T:(k + 1) * T] for p in payloads] for k in range(len(outs))]),
+        out_int16=False)]
+    snrs = []
+    for s in range(S):
+        got = np.concatenate([dec.stream_pcm(o, s, T) for o in pcm_out])
+        ref = pcm[s, L:len(outs) * L - 1024].astype(np.float64)
+        err = got[L + 1024:] * 32768.0 - ref
+        snrs.append(float(10 * np.log10(np.sum(ref ** 2) / np.sum(err ** 2))))
+    return snrs
+
+
+def test_batch_encoder_pipelined_on_card(dev):
+    """encode_pipelined on the card (8 stereo streams, 3 chunks of 8
+    frames) against sequential encode_chunk on the card, byte for byte, one
+    launch of each scan kernel a chunk; every stream decoded on the card
+    (one tail launch a chunk) at an SNR within 0.5 dB of the same stream
+    encoded and decoded on the CPU route."""
+    S, T, n = 8, 8, 3
+    L = T * 1024
+    pcm = TI.encode_serving_pcm(S, n * L)
+    chunks = [pcm[:, k * L:(k + 1) * L] for k in range(n)]
+
+    def encoder(device):
+        return aacjax_torch.BatchEncoder(44100, 2, 128_000, n_streams=S,
+                                         device=device)
+    before = (enc_scans.spread_count.launches,
+              enc_scans.rate_cost_count.launches)
+    got = list(encoder(dev).encode_pipelined(iter(chunks)))
+    assert (enc_scans.spread_count.launches,
+            enc_scans.rate_cost_count.launches) == (before[0] + n,
+                                                    before[1] + n)
+    seq = encoder(dev)
+    assert [seq.encode_chunk(c) for c in chunks] == got
+    cpu = encoder("cpu")
+    want = [cpu.encode_chunk(c) for c in chunks]
+    t0 = tail.launches
+    card = _encode_snrs(got, pcm, seq.config, T, dev)
+    assert tail.launches == t0 + n
+    ref = _encode_snrs(want, pcm, cpu.config, T, "cpu")
+    assert max(abs(a - b) for a, b in zip(card, ref, strict=True)) <= 0.5

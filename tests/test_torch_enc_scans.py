@@ -5,7 +5,7 @@ the reference's `step_up` / `step_dn` and `est_at`
 reference's own `spread` (its two `lax.scan`s, XLA on the CPU), all bit for
 bit; the refactored analysis program against the loops it ran before, bit
 for bit; the wrappers' CPU route.  The CUDA kernels are held to the plain
-versions in tests/test_torch_cuda.py and chip_smoke.py.
+versions on the card in tests/test_torch_cuda.py.
 
 Tolerance: none.  Every comparison is of float32 bit patterns.
 """

@@ -319,8 +319,8 @@ def test_host_stages_match_reference(parity):
 
 
 def _serving_pcm(S, n):
-    """Streams 0, 56, ... of the ENC-512 traffic (chip_smoke.py's encode
-    phase): rotations of bench_encode's shared base."""
+    """Streams 0, 56, ... of the ENC-512 traffic (aacjax_torch/bench.py's
+    bench_encode): rotations of bench_encode's shared base."""
     from aacjax_torch.testing import encode_serving_pcm
     return encode_serving_pcm(57, n)[[0, 56][:S]]
 

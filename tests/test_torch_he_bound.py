@@ -1,6 +1,7 @@
 """How the SBR program amplifies a last-bit difference in the HE core, in
-both packages on the CPU, and the int16 bound that chip_smoke.py holds the
-card's HE and PS routes to (chip_smoke.HE_I16_ONSET / HE_I16_STEADY).
+both packages on the CPU, and the int16 bound that tests/test_torch_cuda.py
+holds the card's HE and PS routes to (aacjax_torch.testing.HE_I16_ONSET /
+HE_I16_STEADY).
 
 On the card the kernel route's core (the tail kernel's FFT IMDCT) and the
 plain route's (the dense IMDCT) differ by float rounding.  Here the same two
@@ -28,7 +29,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import chip_smoke
 from aacjax.host import sbr as JS
 from aacjax.kernels import pallas_tail as PT
 from aacjax.kernels import pipeline as JP
@@ -116,13 +116,13 @@ def test_sbr_amplifies_core_rounding_in_both_packages(lowpass):
     core_diff = float(np.abs(cores["port_fft"] - cores["port_dense"]).max())
     assert 0 < core_diff < 2e-6
     assert np.array_equal(cores["ref_pallas"], cores["ref_xla"])
-    port = chip_smoke.he_i16_stats(
+    port = TI.he_i16_stats(
         [(port_sbr(cores["port_fft"]), port_sbr(cores["port_dense"]), 0)])
-    ref = chip_smoke.he_i16_stats(
+    ref = TI.he_i16_stats(
         [(ref_sbr(cores["port_fft"]), ref_sbr(cores["port_dense"]), 0)])
-    ref_own = chip_smoke.he_i16_stats(
+    ref_own = TI.he_i16_stats(
         [(ref_sbr(cores["ref_pallas"]), ref_sbr(cores["ref_xla"]), 0)])
-    same = chip_smoke.he_i16_stats(
+    same = TI.he_i16_stats(
         [(port_sbr(cores["port_dense"]), ref_sbr(cores["port_dense"]), 0)])
     print(f"\n{'low-passed' if lowpass else 'full-band'}: core diff "
           f"{core_diff:.3g}; max LSB / share (onset, steady): port "
@@ -130,8 +130,8 @@ def test_sbr_amplifies_core_rounding_in_both_packages(lowpass):
           f"cores {ref['onset'][:2]}, {ref['steady'][:2]}; reference's own "
           f"forms {ref_own['onset'][:2]}; port vs reference on one core "
           f"{same['onset'][:2]}, {same['steady'][:2]}")
-    for part, (limit, share) in (("onset", chip_smoke.HE_I16_ONSET),
-                                 ("steady", chip_smoke.HE_I16_STEADY)):
+    for part, (limit, share) in (("onset", TI.HE_I16_ONSET),
+                                 ("steady", TI.HE_I16_STEADY)):
         for name, st in (("port", port), ("reference", ref)):
             assert st[part][0] <= limit and st[part][1] < share, (name, part)
         # the same growth in both packages' SBR programs
