@@ -42,7 +42,7 @@ class NativeParseError(Exception):
 
 
 _lib = None
-_ABI_VERSION = 11  # must match native aacparse_version()
+_ABI_VERSION = 12  # must match native aacparse_version()
 
 
 def _load():
@@ -223,9 +223,12 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
     compact_spec(out) would give, each stream's rows converted by the
     parse thread that wrote them.
 
-    counts (int64 [3], optional) receives the parse's band counts: bands
-    decoded straight into the f32 rows, bands on the general path, and
-    scale-factor gains that missed the table.
+    counts (int64 [5], optional) receives the parse's band
+    counts (bands decoded straight into the f32 rows, bands on the
+    general path, scale-factor gains that missed the table), the workers
+    of its pool that took streams (the calling thread included) and the
+    nanoseconds from the last streams handed out to the last worker
+    done.
 
     Returns (stream_status [n_streams] int32, has_tns).  Status 0 = ok,
     3 = needs Python fallback (capacity overflow), other nonzero = the
@@ -235,6 +238,9 @@ def parse_batch_spec(payloads_per_stream: list[list[bytes] | None],
     if lib is None:
         raise RuntimeError("native parser not built "
                            "(make -C aacjax_torch/native)")
+    if counts is not None and (counts.shape != (5,)
+                               or counts.dtype != np.int64):
+        raise ValueError("counts must be int64 [5]")
     n_streams = len(payloads_per_stream)
     if tables_pack is None:
         from aacjax_torch.host.asc import StreamConfig

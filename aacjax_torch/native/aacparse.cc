@@ -13,7 +13,9 @@
 //    quantised scratch and no second pass over the bins (the general
 //    path, quantised values then finalize_spec, stays for channels with
 //    pulse data, coupling channels and chunks that ship q/sf);
-//  - it counts how often each path ran (parse_counts, ABI version 11).
+//  - it counts how often each path ran (parse_counts);
+//  - it parses on one persistent pool of worker threads per process
+//    (ABI version 12), below.
 //
 // Parses raw_data_blocks (SCE/CPE/LFE/DSE/FIL elements) for a whole
 // multi-stream chunk in one call and emits what the device consumes:
@@ -29,16 +31,48 @@
 // is applied, TNS regions follow ISO/IEC 14496-3, PNS uses the intended
 // LCG (state*1664525 + 1013904223).
 //
-// Concurrency: no global mutable state after init; the ctypes call
-// releases the GIL.
+// Concurrency: the ctypes call releases the GIL.  A call's streams are
+// parsed by the calling thread and the helpers of one process-wide pool:
+//  - size: a call engages min(CPUs, ceil(n_streams / kGrain)) workers,
+//    the caller included; CPUs are those of the process's affinity mask
+//    (sched_getaffinity), or AACJAX_PARSE_THREADS where it is set (read
+//    on every call).  The pool starts at the first call that wants a
+//    helper and grows to the most helpers a call has wanted;
+//  - hand-out: each worker takes the next grain of kGrain streams from
+//    an atomic counter until none is left, so a worker that is preempted
+//    delays only its own grain;
+//  - order: every output is what one worker gives (bit for bit, where no
+//    capacity overflows).  Streams write disjoint rows; each worker keeps
+//    its streams' coupling entries, and the caller copies them out in
+//    stream order after all are done; errbuf holds the message of the
+//    lowest stream that failed.  A coupling-entry overflow gives the
+//    streams that do not fit ERR_FALLBACK (see aacparse_batch_spec);
+//  - sleep: idle helpers wait on a condition variable and take no CPU;
+//  - calls from several threads take turns on the pool; a child forked
+//    after the pool started builds a pool of its own at its first call
+//    (the parent's threads do not survive a fork);
+//  - parse_counts[3..4]: the workers that took a grain, and the ns from
+//    the last grain handed out to the last worker done (the straggler
+//    wait the hand-out cuts).
 //
 // Build: make -C aacjax_torch/native   ->  aacjax_torch/native/libaacparse.so
 
+#include <pthread.h>
+#include <sched.h>
+#include <signal.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <atomic>
+#include <climits>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -1424,6 +1458,147 @@ static inline void spec_row_to_i16(const float* row, int n_cols,
 }
 
 // ---------------------------------------------------------------------
+// The parse pool: persistent workers that aacparse_batch_spec hands its
+// streams to, a grain at a time (the rules are in the header comment)
+// ---------------------------------------------------------------------
+namespace {
+
+constexpr int kGrain = 4;         // streams a worker takes at a time
+constexpr int kMaxWorkers = 256;  // bounds an explicit AACJAX_PARSE_THREADS
+
+int64_t now_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return int64_t{ts.tv_sec} * 1000000000 + ts.tv_nsec;
+}
+
+// The CPUs this process may run on, at least 1.
+int affinity_cpus() {
+  cpu_set_t set;
+  CPU_ZERO(&set);
+  if (sched_getaffinity(0, sizeof(set), &set) != 0) return 1;
+  const int n = CPU_COUNT(&set);
+  return n > 0 ? n : 1;
+}
+
+class ParsePool {
+ public:
+  const pid_t pid = getpid();
+  const int n_cpus = affinity_cpus();
+
+  // fn(ctx, 0) on the calling thread and fn(ctx, w) on each helper that
+  // joins, w = 1 .. n_workers - 1; returns when every one has returned.
+  // The caller never waits for a helper to join: a helper still asleep
+  // when the caller's fn returns misses the job, and the caller's own
+  // share grows.  One job at a time.
+  void run(int n_workers, void (*fn)(void*, int), void* ctx) {
+    std::lock_guard<std::mutex> one_job(job_mu_);
+    const int helpers = grow(n_workers - 1);
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      fn_ = fn;
+      ctx_ = ctx;
+      ++generation_;
+      wanted_ = helpers;
+      joined_ = 0;
+    }
+    for (int k = 0; k < helpers; ++k) work_cv_.notify_one();
+    fn(ctx, 0);
+    std::unique_lock<std::mutex> lk(mu_);
+    wanted_ = 0;  // no helper joins from here on
+    done_cv_.wait(lk, [this] { return active_ == 0; });
+  }
+
+ private:
+  // at least n helper threads, fewer if the system refuses one; they
+  // block every signal, which stay the interpreter's main thread's
+  int grow(int n) {
+    if (static_cast<int>(threads_.size()) < n) {
+      sigset_t all, old;
+      sigfillset(&all);
+      pthread_sigmask(SIG_BLOCK, &all, &old);
+      try {
+        while (static_cast<int>(threads_.size()) < n)
+          threads_.emplace_back([this] { loop(); });
+      } catch (...) {
+      }
+      pthread_sigmask(SIG_SETMASK, &old, nullptr);
+    }
+    return std::min(n, static_cast<int>(threads_.size()));
+  }
+
+  void loop() {
+    uint64_t seen = 0;
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      work_cv_.wait(lk, [&] {
+        return generation_ != seen && joined_ < wanted_;
+      });
+      seen = generation_;
+      const int w = ++joined_;
+      ++active_;
+      void (*fn)(void*, int) = fn_;
+      void* ctx = ctx_;
+      lk.unlock();
+      fn(ctx, w);
+      lk.lock();
+      if (--active_ == 0) done_cv_.notify_one();
+    }
+  }
+
+  std::mutex job_mu_;  // calls from several threads take turns
+  std::mutex mu_;      // guards what follows
+  std::condition_variable work_cv_, done_cv_;
+  std::vector<std::thread> threads_;
+  uint64_t generation_ = 0;
+  int wanted_ = 0, joined_ = 0, active_ = 0;
+  void (*fn_)(void*, int) = nullptr;
+  void* ctx_ = nullptr;
+};
+
+std::atomic<ParsePool*> g_pool{nullptr};
+
+// This process's pool.  A child forked after the pool started gets a new
+// one: the parent's threads did not come along, and its locks may have
+// been held at the fork.  The old object stays behind, unused.
+ParsePool* parse_pool() {
+  ParsePool* p = g_pool.load(std::memory_order_acquire);
+  if (p && p->pid == getpid()) return p;
+  auto* fresh = new ParsePool();
+  if (g_pool.compare_exchange_strong(p, fresh, std::memory_order_acq_rel))
+    return fresh;
+  delete fresh;  // another thread of this process made one first
+  return p;
+}
+
+// One worker's coupling entries, in the order it parsed its streams.
+struct CceBuf {
+  std::vector<int32_t> post_idx, time_idx;  // 3 a entry
+  std::vector<float> post_gain, time_gain;  // frame_len / 1 a entry
+  int n_post() const { return static_cast<int>(post_idx.size() / 3); }
+  int n_time() const { return static_cast<int>(time_idx.size() / 3); }
+};
+
+// What one worker of a call gathers, on cache lines of its own.
+struct alignas(64) WorkerOut {
+  int64_t counts[3] = {0, 0, 0};  // fused bands, general bands, misses
+  bool any_tns = false;
+  bool took = false;                // took at least one grain
+  int64_t done_ns = 0;              // when it found no grain left
+  int err_stream = INT_MAX;         // the lowest stream it saw fail
+  char err_msg[256] = {};
+  char cur_msg[256] = {};           // the stream being parsed
+  CceBuf cce;
+};
+
+// Where a stream's coupling entries sit in its worker's CceBuf.
+struct StreamCce {
+  int w = 0, post_lo = 0, n_post = 0, time_lo = 0, n_time = 0;
+};
+
+}  // namespace
+
+// ---------------------------------------------------------------------
 // C API
 // ---------------------------------------------------------------------
 extern "C" {
@@ -1449,8 +1624,8 @@ extern "C" {
 // frame_len / 16] (nullable, both or neither): what aacjax_spec_to_i16
 // gives for every row of the stream's slots (all T rows, whatever the
 // stream's status), written by the thread that parsed the stream right
-// after its rows.  parse_counts (nullable) sums each thread's counts
-// after the join.
+// after its rows.  parse_counts (nullable) gets the workers' counts
+// summed, the number of workers and the tail's nanoseconds.
 int aacparse_batch_spec(
     const uint8_t* blob, const int64_t* frame_offsets,
     const int32_t* stream_frame_start,
@@ -1524,27 +1699,27 @@ int aacparse_batch_spec(
     char* errbuf, int errbuf_len,
     int16_t* spec_i16,       // [total_slots, T, frame_len] out (nullable)
     float* spec_scale,       // [total_slots, T, frame_len / 16] out
-    int64_t* parse_counts) { // [3] out (nullable): bands decoded straight
+    int64_t* parse_counts) { // [5] out (nullable): bands decoded straight
                              // into the f32 rows, bands on the general
                              // path (PNS, intensity, and every band of a
                              // channel with pulse data, of a coupling
-                             // channel or of a q/sf stream), and scale-
-                             // factor gains that missed the table
+                             // channel or of a q/sf stream), scale-
+                             // factor gains that missed the table, the
+                             // workers (caller included) that took a
+                             // grain, and the ns from the last grain
+                             // handed out to the last worker done
   ensure_init();
   (void)total_slots;
   if (errbuf_len > 0) errbuf[0] = '\0';
 
   // Streams write disjoint output regions (their own slots/frames), so
-  // they parallelize across host cores; only the CCE side arrays append
-  // through a counter, so each worker gets its own arena slice of the
-  // caller's capacity (compacted to a contiguous prefix after the join).
-  struct CceArena {
-    int32_t* post_idx; float* post_gain; int post_cap; int post_count;
-    int32_t* time_idx; float* time_gain; int time_cap; int time_count;
-  };
+  // they parallelize across host cores; only the CCE side arrays are
+  // shared, so each worker appends a stream's entries to its own CceBuf
+  // (at most post_cap / time_cap of them a stream), and the caller copies
+  // them out in stream order after every worker is done.
 
-  // counts: the thread's {fused bands, general bands, gain misses}
-  auto parse_stream = [&](int s, CceArena* arena, bool* any_tns_out,
+  // counts: the worker's {fused bands, general bands, gain misses}
+  auto parse_stream = [&](int s, CceBuf* cce, bool* any_tns_out,
                           char* ebuf, int eblen, int64_t* counts) {
     static thread_local ChannelScratch scratch[2];
     static thread_local CCE cce_store[kMaxCce];
@@ -1610,6 +1785,8 @@ int aacparse_batch_spec(
 
     ParseError err{OK, ""};
     int first_err = OK;
+    const int post_base = cce->n_post();
+    const int time_base = cce->n_time();
     constexpr int kSnapMax = 64;
     int32_t shape_snap[kSnapMax];
     const int snap_n = n_slots < kSnapMax ? n_slots : kSnapMax;
@@ -1617,8 +1794,10 @@ int aacparse_batch_spec(
       // snapshot rollback state so a corrupt frame never leaks partial
       // side effects (shapes, coupling entries, half-written rows)
       memcpy(shape_snap, prev_shapes + base, sizeof(int32_t) * snap_n);
-      const int post_snap = arena->post_count;
-      const int time_snap = arena->time_count;
+      const size_t post_snap = cce->post_idx.size();
+      const size_t post_gain_snap = cce->post_gain.size();
+      const size_t time_snap = cce->time_idx.size();
+      const size_t time_gain_snap = cce->time_gain.size();
       const uint8_t* fdata = blob + frame_offsets[f_lo + t];
       int64_t flen = frame_offsets[f_lo + t + 1] - frame_offsets[f_lo + t];
       BitReader br(fdata, flen);
@@ -1985,15 +2164,13 @@ int aacparse_batch_spec(
               goto sfail;
             }
             for (int k = 0; k < nt; ++k) {
-              if (arena->time_count >= arena->time_cap) {
+              if (cce->n_time() - time_base >= time_cap) {
                 err = {ERR_FALLBACK, "cce: time entries overflow"};
                 goto sfail;
               }
-              int q = arena->time_count++;
-              arena->time_idx[q * 3 + 0] = cc->slot;
-              arena->time_idx[q * 3 + 1] = dsts[k];
-              arena->time_idx[q * 3 + 2] = t;
-              arena->time_gain[q] = cc->gain[gidx[k]][0];
+              cce->time_idx.insert(cce->time_idx.end(),
+                                   {cc->slot, dsts[k], t});
+              cce->time_gain.push_back(cc->gain[gidx[k]][0]);
             }
           } else {
             // AFTER_TNS onto a target that actually has TNS this frame
@@ -2017,16 +2194,16 @@ int aacparse_batch_spec(
                 goto sfail;
               }
               for (int k = 0; k < nt; ++k) {
-                if (arena->post_count >= arena->post_cap) {
+                if (cce->n_post() - post_base >= post_cap) {
                   err = {ERR_FALLBACK, "cce: post entries overflow"};
                   goto sfail;
                 }
-                int q = arena->post_count++;
-                arena->post_idx[q * 3 + 0] = cc->slot;
-                arena->post_idx[q * 3 + 1] = dsts[k];
-                arena->post_idx[q * 3 + 2] = t;
+                cce->post_idx.insert(cce->post_idx.end(),
+                                     {cc->slot, dsts[k], t});
+                const size_t g0 = cce->post_gain.size();
+                cce->post_gain.resize(g0 + F);
                 expand_gain(cc->ch.info, cc->gain[gidx[k]],
-                            arena->post_gain + static_cast<size_t>(q) * F);
+                            cce->post_gain.data() + g0);
               }
             }
           }
@@ -2038,8 +2215,10 @@ int aacparse_batch_spec(
     sfail:
       // roll back every partial side effect of the corrupt frame
       memcpy(prev_shapes + base, shape_snap, sizeof(int32_t) * snap_n);
-      arena->post_count = post_snap;
-      arena->time_count = time_snap;
+      cce->post_idx.resize(post_snap);
+      cce->post_gain.resize(post_gain_snap);
+      cce->time_idx.resize(time_snap);
+      cce->time_gain.resize(time_gain_snap);
       if (fil_sbr)
         memset(fil_sbr + (static_cast<int64_t>(f_lo + t)) * 12, 0,
                sizeof(int64_t) * 12);
@@ -2106,98 +2285,115 @@ int aacparse_batch_spec(
                       spec_i16 + r * frame_len, spec_scale + r * n_blocks);
   };
 
-  int nthreads = 1;
-  if (const char* env = getenv("AACJAX_PARSE_THREADS")) {
-    nthreads = atoi(env);  // explicit: no auto heuristics (testing, tuning)
+  // How many workers, the caller included: one a grain of kGrain streams,
+  // up to the CPUs the process may run on (or AACJAX_PARSE_THREADS, read
+  // on every call).
+  const int n_grains = (n_streams + kGrain - 1) / kGrain;
+  const char* env = getenv("AACJAX_PARSE_THREADS");
+  ParsePool* pool = parse_pool();
+  int workers = env ? atoi(env) : pool->n_cpus;
+  workers = std::min({workers, n_grains, kMaxWorkers});
+  if (workers < 1) workers = 1;
+
+  std::vector<WorkerOut> outs(workers);
+  std::vector<StreamCce> recs(n_streams);
+  std::atomic<int> next_grain{0};
+  int64_t dry_ns = 0;  // when the last grain was handed out
+  auto work = [&](int w) {
+    WorkerOut& o = outs[w];
+    CceBuf& c = o.cce;
+    for (;;) {
+      const int g = next_grain.fetch_add(1, std::memory_order_relaxed);
+      if (g >= n_grains) break;
+      if (g == n_grains - 1) dry_ns = now_ns();
+      o.took = true;
+      const int hi = std::min(n_streams, (g + 1) * kGrain);
+      for (int s = g * kGrain; s < hi; ++s) {
+        const int p0 = c.n_post(), t0 = c.n_time();
+        o.cur_msg[0] = '\0';
+        parse_stream(s, &c, &o.any_tns, o.cur_msg, sizeof(o.cur_msg),
+                     o.counts);
+        compact_stream(s);
+        recs[s] = StreamCce{w, p0, c.n_post() - p0, t0, c.n_time() - t0};
+        // a worker's grains come in ascending order: its first failing
+        // stream is its lowest
+        if (o.cur_msg[0] && o.err_stream == INT_MAX) {
+          o.err_stream = s;
+          memcpy(o.err_msg, o.cur_msg, sizeof(o.err_msg));
+        }
+      }
+    }
+    o.done_ns = now_ns();
+  };
+  if (workers == 1) {
+    work(0);
   } else {
-    unsigned hw = std::thread::hardware_concurrency();
-    nthreads = hw ? static_cast<int>(hw) : 1;
-    if (nthreads > n_streams / 4) nthreads = n_streams / 4;  // amortize spawn
+    pool->run(workers, [](void* ctx, int w) {
+      (*static_cast<decltype(work)*>(ctx))(w);
+    }, &work);
   }
-  if (nthreads > 16) nthreads = 16;
-  if (nthreads > n_streams) nthreads = n_streams;
-  if (nthreads < 1) nthreads = 1;
+
+  // The coupling entries in stream order.  A stream's entries go in whole
+  // or not at all: one whose entries no longer fit in what is left of
+  // post_cap / time_cap gets ERR_FALLBACK (its other outputs stay as
+  // parsed), and a later stream's still go in if they fit.  So an
+  // overflow ends the same way for any worker count.
+  int np = 0, nt = 0;
+  int ovf_stream = INT_MAX;
+  char ovf_msg[96] = "";
+  for (int s = 0; s < n_streams; ++s) {
+    const StreamCce& r = recs[s];
+    if (!r.n_post && !r.n_time) continue;
+    if (np + r.n_post > post_cap || nt + r.n_time > time_cap) {
+      stream_status[s] = ERR_FALLBACK;
+      if (ovf_stream == INT_MAX) {
+        ovf_stream = s;
+        snprintf(ovf_msg, sizeof(ovf_msg),
+                 "stream %d: cce: the chunk's coupling entries overflow", s);
+      }
+      continue;
+    }
+    const CceBuf& c = outs[r.w].cce;
+    memcpy(cce_post_idx + 3 * np, c.post_idx.data() + 3 * r.post_lo,
+           sizeof(int32_t) * 3 * r.n_post);
+    memcpy(cce_post_gain + static_cast<size_t>(frame_len) * np,
+           c.post_gain.data() + static_cast<size_t>(frame_len) * r.post_lo,
+           sizeof(float) * frame_len * r.n_post);
+    memcpy(cce_time_idx + 3 * nt, c.time_idx.data() + 3 * r.time_lo,
+           sizeof(int32_t) * 3 * r.n_time);
+    memcpy(cce_time_gain + nt, c.time_gain.data() + r.time_lo,
+           sizeof(float) * r.n_time);
+    np += r.n_post;
+    nt += r.n_time;
+  }
+  cce_counts[0] = np;
+  cce_counts[1] = nt;
+
+  // errbuf: the message of the lowest stream that failed (an overflow
+  // above replaces that stream's own)
+  const WorkerOut* first = nullptr;
+  for (const WorkerOut& o : outs)
+    if (o.err_stream != INT_MAX && (!first || o.err_stream < first->err_stream))
+      first = &o;
+  const char* msg = first ? first->err_msg : "";
+  if (ovf_stream != INT_MAX && (!first || ovf_stream <= first->err_stream))
+    msg = ovf_msg;
+  if (errbuf_len > 0) snprintf(errbuf, errbuf_len, "%s", msg);
 
   bool any_tns = false;
-  std::vector<int64_t> counts(static_cast<size_t>(nthreads) * 3, 0);
-  if (nthreads == 1) {
-    CceArena arena{cce_post_idx, cce_post_gain, post_cap, 0,
-                   cce_time_idx,  cce_time_gain, time_cap, 0};
-    for (int s = 0; s < n_streams; ++s) {
-      parse_stream(s, &arena, &any_tns, errbuf, errbuf_len, counts.data());
-      compact_stream(s);
-    }
-    cce_counts[0] = arena.post_count;
-    cce_counts[1] = arena.time_count;
-  } else {
-    std::vector<CceArena> arenas(nthreads);
-    std::vector<char> ebufs(static_cast<size_t>(nthreads) * 256, 0);
-    std::vector<uint8_t> tns_flags(nthreads, 0);
-    for (int k = 0; k < nthreads; ++k) {
-      const int64_t p_lo = static_cast<int64_t>(post_cap) * k / nthreads;
-      const int64_t p_hi = static_cast<int64_t>(post_cap) * (k + 1) / nthreads;
-      const int64_t t_lo = static_cast<int64_t>(time_cap) * k / nthreads;
-      const int64_t t_hi = static_cast<int64_t>(time_cap) * (k + 1) / nthreads;
-      arenas[k] = CceArena{
-          cce_post_idx + 3 * p_lo,
-          cce_post_gain + static_cast<int64_t>(frame_len) * p_lo,
-          static_cast<int>(p_hi - p_lo), 0,
-          cce_time_idx + 3 * t_lo,
-          cce_time_gain + t_lo,
-          static_cast<int>(t_hi - t_lo), 0};
-    }
-    std::vector<std::thread> workers;
-    workers.reserve(nthreads);
-    for (int k = 0; k < nthreads; ++k) {
-      const int lo = static_cast<int>(
-          static_cast<int64_t>(n_streams) * k / nthreads);
-      const int hi = static_cast<int>(
-          static_cast<int64_t>(n_streams) * (k + 1) / nthreads);
-      workers.emplace_back([&, k, lo, hi]() {
-        bool tns = false;
-        int64_t own[3] = {0, 0, 0};
-        for (int s = lo; s < hi; ++s) {
-          parse_stream(s, &arenas[k], &tns, ebufs.data() + k * 256, 256, own);
-          compact_stream(s);
-        }
-        for (int i = 0; i < 3; ++i) counts[static_cast<size_t>(k) * 3 + i] = own[i];
-        tns_flags[k] = tns ? 1 : 0;
-      });
-    }
-    for (auto& th : workers) th.join();
-    // compact per-thread CCE arenas into a contiguous prefix (dest is
-    // always at or left of src, and rows never overlap within a move)
-    int np = 0, nt = 0;
-    for (int k = 0; k < nthreads; ++k) {
-      const CceArena& a = arenas[k];
-      if (a.post_count && a.post_idx != cce_post_idx + 3 * np) {
-        memmove(cce_post_idx + 3 * np, a.post_idx,
-                sizeof(int32_t) * 3 * a.post_count);
-        memmove(cce_post_gain + static_cast<size_t>(frame_len) * np,
-                a.post_gain, sizeof(float) * frame_len * a.post_count);
-      }
-      np += a.post_count;
-      if (a.time_count && a.time_idx != cce_time_idx + 3 * nt) {
-        memmove(cce_time_idx + 3 * nt, a.time_idx,
-                sizeof(int32_t) * 3 * a.time_count);
-        memmove(cce_time_gain + nt, a.time_gain,
-                sizeof(float) * a.time_count);
-      }
-      nt += a.time_count;
-      any_tns = any_tns || tns_flags[k];
-      if (ebufs[static_cast<size_t>(k) * 256] && errbuf_len > 0 && !errbuf[0])
-        snprintf(errbuf, errbuf_len, "%s",
-                 ebufs.data() + static_cast<size_t>(k) * 256);
-    }
-    cce_counts[0] = np;
-    cce_counts[1] = nt;
-  }
+  for (const WorkerOut& o : outs) any_tns = any_tns || o.any_tns;
   has_tns_out[0] = any_tns ? 1 : 0;
   if (parse_counts) {
-    for (int i = 0; i < 3; ++i) parse_counts[i] = 0;
-    for (int k = 0; k < nthreads; ++k)
-      for (int i = 0; i < 3; ++i)
-        parse_counts[i] += counts[static_cast<size_t>(k) * 3 + i];
+    int64_t last_ns = dry_ns;
+    for (int i = 0; i < 5; ++i) parse_counts[i] = 0;
+    for (const WorkerOut& o : outs) {
+      for (int i = 0; i < 3; ++i) parse_counts[i] += o.counts[i];
+      if (o.took) {
+        ++parse_counts[3];
+        last_ns = std::max(last_ns, o.done_ns);
+      }
+    }
+    parse_counts[4] = last_ns - dry_ns;
   }
   return OK;
 }
@@ -2210,6 +2406,6 @@ void aacjax_spec_to_i16(const float* spec, int64_t n_rows, int n_cols,
                     scales + r * n_blocks);
 }
 
-int aacparse_version() { return 11; }
+int aacparse_version() { return 12; }
 
 }  // extern "C"

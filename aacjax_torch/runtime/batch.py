@@ -101,9 +101,11 @@ from aacjax_torch.runtime.stats import DecodeStats, Trace
 FRAME = 1024
 NATIVE_FRAME_LENGTHS = (1024, 960, 512, 480)
 MAIN_PROFILE, LTP_PROFILE, ELD_PROFILE = 1, 4, 39
-# the native parse's band counts, in its parse_counts order (traced only)
+# the native parse's counts, in its parse_counts order (traced only): the
+# bands by path, then the pool's workers that took streams and its tail
 PARSE_COUNTERS = ("parse_fused_bands", "parse_general_bands",
-                  "parse_gain_table_misses")
+                  "parse_gain_table_misses", "parse_workers",
+                  "parse_tail_ns")
 
 
 def _h2d_fields(F: int) -> dict:
@@ -627,8 +629,9 @@ class BatchDecoder:
         spectra as they go; a chunk whose DRC gains are folded into the f32
         spectra after the parse converts them again in a pass of its own.
 
-        When tracing, the parse's band counts are counters of the chunk:
-        parse_fused_bands, parse_general_bands, parse_gain_table_misses."""
+        When tracing, the parse's counts are counters of the chunk:
+        parse_fused_bands, parse_general_bands, parse_gain_table_misses,
+        parse_workers, parse_tail_ns."""
         t0 = time.perf_counter_ns()
         if self._any_main:
             compact = False
@@ -645,7 +648,8 @@ class BatchDecoder:
         self._spanned("parse.wait_h2d", chunk_id, _wait,
                       self._h2d_done[buf_slot])
         # an untraced parse is asked for no counts
-        counted = {} if tr is None else {"counts": np.zeros(3, np.int64)}
+        counted = {} if tr is None else {
+            "counts": np.zeros(len(PARSE_COUNTERS), np.int64)}
         status, has_tns, errmsg = self._spanned(
             "parse.native", chunk_id, native.parse_batch_spec,
             payloads_per_stream, self._sample_indices, self._chan_configs,

@@ -1,11 +1,13 @@
-"""The native parse's band counts over one run of a benchmark cell.
+"""The native parse's counts over one run of a benchmark cell.
 
 The run is `portbench.run.run_cell` with the program's recorder
 (`BatchDecoder.trace`) switched on in the serving decoder; the script sums
-the counters parse_fused_bands, parse_general_bands and
-parse_gain_table_misses over the chunks the decoder parsed (warm-up chunks
-included) and gives the mean `parse.native` span beside them.  It prints
-one JSON line.
+the counters parse_fused_bands, parse_general_bands,
+parse_gain_table_misses, parse_workers and parse_tail_ns over the chunks
+the decoder parsed (warm-up chunks included), and gives beside them the
+mean a chunk of parse_workers, parse_tail_ns and the `parse.native` span,
+and the CPUs the process may run on (its affinity mask) and the host's
+count.  It prints one JSON line.
 
 On a card, from the repository root:
     python3 scripts/parse_counts.py --workload lc256k.bulk --seed 7
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 
@@ -58,8 +61,14 @@ def main(argv=None) -> int:
         "workload": args.workload, "seed": args.seed,
         "device": line.get("device"), "correct": line.get("correct"),
         "chunks_counted": len(chunks), **counts,
+        "parse_workers_mean": (counts["parse_workers"] / len(chunks)
+                               if chunks else None),
+        "parse_tail_ns_mean": (counts["parse_tail_ns"] / len(chunks)
+                               if chunks else None),
         "parse_native_ms_mean": (sum(native_ms) / len(native_ms)
-                                 if native_ms else None)}))
+                                 if native_ms else None),
+        "affinity_cpus": len(os.sched_getaffinity(0)),
+        "cpu_count": os.cpu_count()}))
     return 0
 
 

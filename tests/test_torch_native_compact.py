@@ -357,12 +357,12 @@ def _to_i16(lib, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 @pytest.mark.parametrize("F", [1024, 960, 512, 480])
 def test_libraries_versions_and_separate_pass(F):
     """The JAX package's library still loads at version 9 and the port's
-    reads 11; the port's aacjax_spec_to_i16 (the DRC chunks' pass) gives
+    reads 12; the port's aacjax_spec_to_i16 (the DRC chunks' pass) gives
     the JAX library's scalar results and the model's on edge rows; the
     port's fused parse gives the JAX library's spectra and int16."""
     lib, jlib = native._load(), jax_native._load()
     assert jlib is not None and jlib.aacparse_version() == 9
-    assert lib.aacparse_version() == native._ABI_VERSION == 11
+    assert lib.aacparse_version() == native._ABI_VERSION == 12
     x = _edge_rows(F)
     q, s = _to_i16(lib, x)
     j_q, j_s = _to_i16(jlib, x)
