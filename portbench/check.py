@@ -25,17 +25,27 @@ The numbers compared: `max_lsb`, the largest |program - reference| over
 every compared sample, in int16 steps; `share_ne`, the share of compared
 samples that differ at all.  Each has its limit in the configuration
 (`check.limits`), set from the readings in PERF.md.
+
+The reference decoder is the module of portbench/reference/ that the
+configuration names (registry.reference_file; reference/decode.py says
+what it gives).  Stream s's output is rows s * ROWS ... s * ROWS +
+OUT_CHANNELS - 1 of the program's PCM, as its route declares
+(routes/__init__.py; the configuration's `channels` for both where the
+route declares neither).
 """
 from __future__ import annotations
 
 import concurrent.futures
 import functools
+import importlib.util
 import multiprocessing
 import os
 import pathlib
+import sys
 
 import numpy as np
 
+from portbench import registry
 from portbench.corpus import Feed, adts_payloads, seed_rng
 
 
@@ -44,19 +54,31 @@ def _stream(path: str) -> list[bytes]:
     return adts_payloads(pathlib.Path(path).read_bytes())
 
 
-def reference_pcm(path: str, sample_index: int, channels: int, sbr: bool,
+@functools.lru_cache(maxsize=None)
+def _reference_module(path: str):
+    """The reference decoder module in the file `path`, loaded once a
+    process."""
+    name = f"portbench_reference_file_{pathlib.Path(path).stem}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_pcm(path: str, module: str, facts: dict,
                   frames: tuple[int, ...], skip: int,
                   precision: str) -> np.ndarray:
-    """The reference's int16 PCM [n - skip, samples, channels] of frames
-    `frames` of the stream at `path`, decoded in order from a fresh
-    decoder, the first `skip` decoded but not returned.  Runs in a worker
-    process: imports nothing of the program."""
-    from portbench.reference import asc, decode
+    """The reference's int16 PCM [n - skip, samples, output channels] of
+    frames `frames` of the stream at `path`, decoded in order from a fresh
+    decoder that the module in the file `module` makes from `facts` in
+    `precision`, the first `skip` decoded but not returned.  Runs in a
+    worker process: imports nothing of the program."""
+    from portbench.reference.decode import to_int16
     pays = _stream(path)
-    dec = decode.Decoder(asc.stream_config(2, sample_index, channels),
-                         sbr, precision)
+    dec = _reference_module(module).decoder(facts, precision)
     out = [dec.decode(pays[f]) for f in frames]
-    return decode.to_int16(np.stack(out[skip:]))
+    return to_int16(np.stack(out[skip:]))
 
 
 def compare(got: np.ndarray, want: np.ndarray) -> tuple[int, int, int]:
@@ -70,11 +92,15 @@ class Check:
     the window compares them with the reference."""
 
     def __init__(self, kind: str, seed: int, feed: Feed, config: dict,
-                 spec: dict, files: list[pathlib.Path], sbr: bool):
-        self.seed, self.feed, self.spec, self.sbr = seed, feed, spec, sbr
+                 spec: dict, files: list[pathlib.Path], sbr: bool,
+                 rows: int | None = None, out_channels: int | None = None):
+        self.seed, self.feed, self.spec = seed, feed, spec
         self.files = [str(f) for f in files]
-        self.ch = config["channels"]
-        self.sample_index = config["sample_index"]
+        self.rows = rows or config["channels"]
+        self.out_channels = out_channels or config["channels"]
+        self.module = str(registry.reference_file(config))
+        self.facts = {**{k: v for k, v in config.items() if k != "corpus"},
+                      "sbr": sbr}
         self.limits = config["check"]["limits"]
         n = len(feed.slots)
         self.kind = kind
@@ -89,12 +115,12 @@ class Check:
         self.kept: dict = {}
 
     def keep(self, k: int, pcm: np.ndarray) -> None:
-        ch = self.ch
+        rows, ch = self.rows, self.out_channels
         if self.kind == "pairs":
             s = self._order[k % len(self._order)]
-            self.kept[k] = {s: pcm[s * ch:(s + 1) * ch].copy()}
+            self.kept[k] = {s: pcm[s * rows:s * rows + ch].copy()}
         else:
-            self.kept[k] = {s: pcm[s * ch:(s + 1) * ch].copy()
+            self.kept[k] = {s: pcm[s * rows:s * rows + ch].copy()
                             for s in self.slots}
 
     def _tasks(self, window: list[int]) -> list[tuple]:
@@ -144,8 +170,8 @@ class Check:
                 "compared_slots": len({t[0] for t in tasks})}
 
     def _decode(self, tasks, precision: str, workers: int | None):
-        args = [(self.files[self.feed.slots[s][0]], self.sample_index,
-                 self.ch, self.sbr, tuple(frames), skip, precision)
+        args = [(self.files[self.feed.slots[s][0]], self.module,
+                 self.facts, tuple(frames), skip, precision)
                 for s, _, frames, skip in tasks]
         n = workers or max(1, min(len(args), (os.cpu_count() or 2) - 1, 8))
         ctx = multiprocessing.get_context("spawn")

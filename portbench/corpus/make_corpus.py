@@ -12,6 +12,11 @@ parser), then rewrites the configuration's `corpus` section with the
 files' sha256 and sizes and the mean bitrate each stream reached.  Every
 run from the same seeds writes the same bytes.
 
+The configuration's `codec` names its encoder: `codecs/<codec>.py`, which
+gives CODED_CHANNELS, the channels the stream codes, and `encode(pcm,
+job) -> bytes`, the ADTS stream of the stereo PCM.  A later codec is a
+new file there.
+
 The PCM: per stream a tempo, a key and three voices (bass, chords, a lead
 with vibrato), each note a tone with harmonics under an attack-decay
 envelope; a kick, a snare and a hi-hat on the beat grid, whose onsets
@@ -23,6 +28,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import hashlib
+import importlib.util
 import json
 import multiprocessing
 import pathlib
@@ -125,7 +131,8 @@ def music(seed: int, seconds: float, sr: int = SR) -> np.ndarray:
 
 
 def frame_flags(data: bytes, sample_index: int, channels: int) -> str:
-    """One hex digit a frame: FLAG_TNS where a channel carries TNS,
+    """One hex digit a frame of a stream of `channels` coded channels
+    (its codec's CODED_CHANNELS): FLAG_TNS where a channel carries TNS,
     FLAG_SHORT where one has eight short windows, FLAG_NOT_QSF where one
     uses M/S, PNS or intensity stereo (the frames whose spectra the
     program cannot send as raw quantized values)."""
@@ -161,18 +168,26 @@ def frame_flags(data: bytes, sample_index: int, channels: int) -> str:
     return "".join(digits)
 
 
+def codec(name: str):
+    """The encoder module of codec `name` (codecs/<name>.py)."""
+    path = HERE / "codecs" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no codec module {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.corpus.codecs.{name.replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def encode_one(job: dict) -> dict:
-    """Encode one stream (a worker's unit); returns its file's facts."""
+    """Encode one stream (a worker's unit) into the directory `out`;
+    returns its file's facts."""
     sys.path.insert(0, str(ROOT))
     pcm = music(job["seed"], job["seconds"])
-    if job["codec"] == "he-aac-v1":
-        from aacjax_torch.encode_he import HEAACEncoder
-        data = HEAACEncoder(SR, 2, job["bitrate"]).encode(pcm)
-    else:
-        from aacjax_torch.encode import AACEncoder
-        data = AACEncoder(SR, 2, job["bitrate"], pns=job["pns"],
-                          intensity=job["intensity"]).encode(pcm)
-    path = HERE / job["file"]
+    enc = codec(job["codec"])
+    data = enc.encode(pcm, job)
+    path = pathlib.Path(job["out"]) / job["file"]
     path.write_bytes(data)
     from portbench.corpus import adts_payloads
     n_frames = len(adts_payloads(data))
@@ -180,25 +195,33 @@ def encode_one(job: dict) -> dict:
                 sha256=hashlib.sha256(data).hexdigest(), bytes=len(data),
                 frames=n_frames, seed=job["seed"],
                 kbps=round(len(data) * 8 / job["seconds"] / 1000, 2),
-                flags=frame_flags(data, job["sample_index"], 2))
+                flags=frame_flags(data, job["sample_index"],
+                                  enc.CODED_CHANNELS))
 
 
-def make(config_name: str, workers: int) -> None:
+def make(config_name: str, workers: int, out: pathlib.Path | None = None,
+         streams: int | None = None) -> dict:
+    """Make the corpus of configuration `config_name` and return the
+    configuration with its `corpus` section rewritten.  Into
+    portbench/corpus/, rewriting the configuration's file, by default;
+    with `out`, its first `streams` streams, their frame table and the
+    rewritten configuration go into that directory instead."""
     cpath = CONFIGS / f"{config_name}.json"
     cfg = json.loads(cpath.read_text())
     mk = cfg["corpus"]["make"]
+    dest = HERE if out is None else pathlib.Path(out)
     jobs = [dict(codec=cfg["codec"], bitrate=cfg["bitrate_bps"],
                  seconds=mk["seconds"], seed=mk["seed"] + i,
-                 file=f"{mk['prefix']}-{i:02d}.aac",
-                 sample_index=cfg["sample_index"],
+                 file=f"{mk['prefix']}-{i:02d}.aac", out=str(dest),
+                 sample_rate=SR, sample_index=cfg["sample_index"],
                  pns=mk.get("pns", True), intensity=mk.get("intensity", True))
-            for i in range(mk["streams"])]
+            for i in range(mk["streams"] if streams is None else streams)]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(workers,
                                                 mp_context=ctx) as pool:
         files = list(pool.map(encode_one, jobs))
     frames = {f["file"]: f.pop("flags") for f in files}
-    table = HERE / f"{config_name}.frames.json"
+    table = dest / f"{config_name}.frames.json"
     table.write_text(json.dumps(frames, indent=0) + "\n")
     kbps = [f["kbps"] for f in files]
     cfg["corpus"].update(
@@ -207,10 +230,12 @@ def make(config_name: str, workers: int) -> None:
         frames_sha256=hashlib.sha256(table.read_bytes()).hexdigest(),
         mean_kbps=round(float(np.mean(kbps)), 2),
         kbps_range=[min(kbps), max(kbps)])
-    cpath.write_text(json.dumps(cfg, indent=2) + "\n")
+    (cpath if out is None else dest / cpath.name).write_text(
+        json.dumps(cfg, indent=2) + "\n")
     print(f"{config_name}: {len(files)} streams, mean {np.mean(kbps):.2f} "
           f"kbps ({min(kbps)}-{max(kbps)}), "
           f"{sum(f['bytes'] for f in files)} bytes")
+    return cfg
 
 
 def main(argv=None) -> int:

@@ -1,13 +1,20 @@
 """Frame-by-frame float64 decode of one stream, the reference of the
 output check: AAC-LC, or HE-AAC v1 with the SBR tool applied to every
 channel element that carries an SBR extension (44.1 kHz out of a
-22.05 kHz core)."""
+22.05 kHz core).
+
+A configuration names the module of portbench/reference/ that decodes its
+streams by its `reference_decoder` key (this module where it names none).
+Such a module gives `decoder(facts, precision)`: `facts` is the
+configuration's file without its corpus, with `sbr` (the route's SBR)
+added, and the result's `decode(payload)` returns one frame's float64 PCM
+[samples, output channels] in the 1/32768 scale."""
 from __future__ import annotations
 
 import numpy as np
 
 from portbench.reference import sbr as sbrmod
-from portbench.reference.asc import StreamConfig
+from portbench.reference.asc import StreamConfig, stream_config
 from portbench.reference.bitio import BitReader
 from portbench.reference.precision import PRECISIONS
 from portbench.reference.refdec import ModelDecoder
@@ -21,15 +28,25 @@ def to_int16(pcm: np.ndarray) -> np.ndarray:
     return np.clip(np.rint(pcm * 32768.0), -32768, 32767).astype(np.int16)
 
 
+def decoder(facts: dict, precision: str) -> "Decoder":
+    """The reference decoder of a configuration's streams: AAC-LC of its
+    coded `channels` at its `sample_index`, with SBR where `sbr`."""
+    return Decoder(stream_config(2, facts["sample_index"], facts["channels"]),
+                   facts["sbr"], precision)
+
+
 class Decoder:
     """One stream from its first frame on.  `sbr`: apply HE-AAC v1's SBR
     (the output then has twice the core's samples a frame).  `precision`:
-    a key of precision.PRECISIONS."""
+    a key of precision.PRECISIONS.  `sbr_readers`: readers of the SBR
+    extended data's payloads by extension id (sbr.read_sbr_extension),
+    none by default."""
 
     def __init__(self, config: StreamConfig, sbr: bool,
-                 precision: str = "exact"):
+                 precision: str = "exact", sbr_readers: dict | None = None):
         rnd = PRECISIONS[precision]
         self.config = config
+        self.sbr_readers = sbr_readers
         self.prev_shapes = [0] * config.channels
         self.core = ModelDecoder(config, rnd=rnd)
         self.sbr_ctx = (sbrmod.SBRContext(sample_rate=2 * config.sample_rate)
@@ -40,7 +57,8 @@ class Decoder:
         """One frame's PCM [samples, channels], float64 in the 1/32768
         scale."""
         frame = decode_frame(BitReader(payload), self.config,
-                             self.prev_shapes, sbr_ctx=self.sbr_ctx)
+                             self.prev_shapes, sbr_ctx=self.sbr_ctx,
+                             sbr_readers=self.sbr_readers)
         ch = 0
         for elem in frame.elements:
             if isinstance(elem, SCEData):

@@ -613,6 +613,8 @@ class SBRFrame:
     tables: SBRTables
     channels: list[SBRChannelData]
     coupling: bool = False
+    # what the caller's readers returned, by extension id
+    extensions: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -629,9 +631,16 @@ class SBRContext:
 
 
 def read_sbr_extension(r: BitReader, ctx: SBRContext, is_cpe: bool,
-                       crc: bool) -> SBRFrame:
+                       crc: bool, readers: dict | None = None) -> SBRFrame:
     """Parse one sbr_extension_data payload (reader positioned after the
-    4-bit extension_type)."""
+    4-bit extension_type).
+
+    `readers`: optional callables by bs_extension_id, each called as
+    `reader(r, bits_left)` with `r` after the 2-bit id and the bits left
+    to the end of the extended data; its result is kept on the frame's
+    `extensions`.  Parametric Stereo (id 2, SCE only) with no reader
+    raises UnsupportedError; any other id without a reader ends the
+    loop."""
     if crc:
         r.advance(10)
     if r.read(1):  # bs_header_flag
@@ -695,6 +704,7 @@ def read_sbr_extension(r: BitReader, ctx: SBRContext, is_cpe: bool,
                                            env0, noise0, ah0))
             channels.append(SBRChannelData(g1, df1[0], df1[1], invf1,
                                            env1, noise1, ah1))
+    extensions = {}
     if r.read(1):  # bs_extended_data
         cnt = r.read(4)
         if cnt == 15:
@@ -703,14 +713,21 @@ def read_sbr_extension(r: BitReader, ctx: SBRContext, is_cpe: bool,
         # extension payload loop (Parametric Stereo rides here, id 2)
         while end - r.bit_position > 7:
             ext_id = r.read(2)
-            if ext_id == 2 and not is_cpe:   # EXTENSION_ID_PS (SCE only)
+            ps = ext_id == 2
+            reader = (readers or {}).get(ext_id)
+            if ps and is_cpe:                # EXTENSION_ID_PS (SCE only)
+                break
+            if reader is not None:
+                extensions[ext_id] = reader(r, end - r.bit_position)
+                continue
+            if ps:
                 raise UnsupportedError("Parametric Stereo (HE-AAC v2)")
             break
         if r.bit_position > end:
             raise BitstreamError("SBR extension payload overrun")
         r.advance(end - r.bit_position)
     return SBRFrame(header=header, tables=tables, channels=channels,
-                    coupling=coupling)
+                    coupling=coupling, extensions=extensions)
 
 
 def _read_channel(r: BitReader, header: SBRHeader, tables: SBRTables,

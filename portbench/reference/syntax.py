@@ -489,7 +489,8 @@ def decode_cpe(stream: BitReader, config: StreamConfig,
 
 
 def decode_frame(stream: BitReader, config: StreamConfig,
-                 prev_shapes: list[int], sbr_ctx=None) -> Frame:
+                 prev_shapes: list[int], sbr_ctx=None,
+                 sbr_readers: dict | None = None) -> Frame:
     """Parse one raw_data_block (decoder.js:125-201 element loop).
 
     prev_shapes: per-decoder-channel previous window shapes (persisted by
@@ -498,6 +499,9 @@ def decode_frame(stream: BitReader, config: StreamConfig,
     sbr_ctx: optional SBRContext; when given, FIL extension payloads
     carrying SBR data (HE-AAC implicit signalling) are parsed and attached
     to the preceding SCE/CPE element instead of being skipped.
+
+    sbr_readers: optional readers of the SBR extended data's payloads by
+    extension id (sbr.read_sbr_extension), passed through.
     """
     if config.profile != 2:
         raise UnsupportedError(f"audio object type {config.profile}")
@@ -551,7 +555,7 @@ def decode_frame(stream: BitReader, config: StreamConfig,
                 ext_type = stream.read(4)
                 elements[-1].sbr = sbrmod.read_sbr_extension(
                     stream, sbr_ctx, isinstance(elements[-1], CPEData),
-                    ext_type == sbrmod.EXT_SBR_DATA_CRC)
+                    ext_type == sbrmod.EXT_SBR_DATA_CRC, sbr_readers)
                 consumed = stream.bit_position - start
                 if consumed > cnt * 8:
                     raise BitstreamError("SBR extension payload overrun")

@@ -1,8 +1,10 @@
 """Finds a cell's pieces by the names in BENCHMARK.json: its configuration
 (`configs/<config>.json`), its traffic (`traffic/<traffic>.json`), the
-route the configuration names (`routes/<route>.py`) and a module per
-metric (`metrics/<metric>.py`).  A later cell, configuration, traffic mix
-or metric is a new file here, found by its name."""
+route the configuration names (`routes/<route>.py`), the reference decoder
+it names (`reference/<reference_decoder>.py`, `decode` by default) and a
+module per metric (`metrics/<metric>.py`).  A later cell, configuration,
+traffic mix, reference decoder or metric is a new file here, found by its
+name."""
 from __future__ import annotations
 
 import importlib.util
@@ -36,6 +38,15 @@ def metric(name: str):
 
 def route(name: str):
     return _module("routes", name)
+
+
+def reference_file(config: dict) -> pathlib.Path:
+    """The file of the reference decoder module that `config` names."""
+    name = config.get("reference_decoder", "decode")
+    path = HERE / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference module {path}")
+    return path
 
 
 @dataclass

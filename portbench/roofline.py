@@ -1,8 +1,10 @@
 """The yardstick of a kernel's roofline share: the card's published peaks
 and the bytes and operations a kernel's call needs, computed from its
-shape.  The arithmetic is that of `chip_smoke.py`'s kernel table (its
-`bound`, `FFT_FLOPS` and `filterbank_flops`, and the tail case's byte
-count), copied here so that the program cannot change the yardstick."""
+shape: a call's bound is max(bytes / HBM bandwidth, FP32 operations / FP32
+peak), the tail's bytes and operations counted from C, T and its input
+and output types.  It lives with the benchmark so that the program cannot
+change the yardstick; the kernel table's timing script
+(`scripts/kernel_times.py`) takes its bounds from here."""
 from __future__ import annotations
 
 # NVIDIA H100 SXM (data sheet, at the 700 W limit): HBM3 bytes/s and FP32

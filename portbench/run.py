@@ -18,7 +18,9 @@ per-layer metrics; with `--trace 0` it carries the end-to-end ones.  Once
 the window has closed and the device's peak memory is read, the program is
 freed and the reference (portbench/reference) checks a sample of what the
 window yielded (portbench/check.py); each number compared is printed
-beside its limit, last in the line and as the last lines of stderr.
+beside its limit, last in the line and as the last lines of stderr.  The
+line's `wall` gives the run's parts on the host clock: set-up, the serving
+loop from the window's opening to its end, and the check.
 
 Without a CUDA card (or with fewer than the cell asks for), and where
 jax, jaxlib, flax or aacjax is loaded once the window has closed, it exits
@@ -152,7 +154,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     dec = route.decoder(cell, device)
     serve = route.serve if tamper is None else tamper(dec, route.serve)
     check = Check(route.CHECK, seed, feed, cfg, traffic["check"],
-                  corpus.files, route.SBR)
+                  corpus.files, route.SBR, rows=getattr(route, "ROWS", None),
+                  out_channels=getattr(route, "OUT_CHANNELS", None))
     tracer = Tracer(cuda) if trace else None
     if tracer:
         route.instrument(dec, tracer)
@@ -177,6 +180,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         tracer.stop_profile()
     if cuda:
         torch.cuda.synchronize()
+    t_served = time.perf_counter()
     window = win.chunks()
     log(f"portbench: {name} seed {seed}: set-up {setup_s:.3f} s, "
         f"{len(window)} chunks in the window, {len(win.done)} decoded")
@@ -214,8 +218,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     t_check = time.perf_counter()
     readings = check.run(window, control=control, workers=workers)
     ok, shown = check.verdict(readings)
+    check_s = time.perf_counter() - t_check
     log(f"portbench: the check compared {readings.get('compared_chunks')} "
-        f"chunks in {time.perf_counter() - t_check:.1f} s")
+        f"chunks in {check_s:.1f} s")
     attempted = len(window) * n_slots
     failed = failed_slots * len(window)
     result = {"correct": bool(ok and failed == 0 and attempted > 0),
@@ -223,6 +228,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
               "device": dev_info}
     if bd is not None:
         result["breakdown"] = bd
+    result["wall"] = {
+        "setup_s": setup_s,
+        "window_s": (None if win.t_open is None else t_served - win.t_open),
+        "check_s": check_s}
     result["compared"] = shown
     return result, readings
 

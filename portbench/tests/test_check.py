@@ -38,6 +38,10 @@ def test_a_sound_run_reads_small_numbers(cell):
     assert result["correct"] is True, readings
     assert list(result)[-1] == "compared"
     assert set(result["compared"]) == {"max_lsb", "share_ne"}
+    wall = result["wall"]
+    assert set(wall) == {"setup_s", "window_s", "check_s"}
+    assert wall["setup_s"] == result["metrics"]["setup_s"]["value"]
+    assert wall["window_s"] >= SIZES[cell][1] and wall["check_s"] > 0
     assert result["attempted"] > 0 and result["failed"] == 0
 
 

@@ -112,7 +112,7 @@ def test_tail_bytes_and_operations_at_the_cells_shapes(C, T):
     assert by == "bytes" and b == pytest.approx(want / 3.35e12)
 
 
-def test_tail_bound_at_the_bulk_shape_is_chip_smokes():
+def test_tail_bound_at_the_bulk_shape_is_0_0239_ms():
     b, _ = roofline.bound_s(roofline.tail_bytes(1024, 16, True, True), 0)
     assert b * 1e3 == pytest.approx(0.0239, abs=5e-4)   # PERF.md PR 15
 
